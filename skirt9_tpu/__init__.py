@@ -1,6 +1,6 @@
-"""skirt9_tpu — a TPU-native Monte Carlo radiative-transfer framework.
+"""skirt9_tpu — a JAX Monte Carlo radiative-transfer framework.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of SKIRT 9
+A brand-new JAX/XLA implementation of the capabilities of SKIRT 9
 (advanced radiative transfer in dusty astrophysical systems): photon-packet
 Monte Carlo transport through spatial grids of dusty/gaseous media, with
 forced scattering, peel-off imaging to synthetic instruments, radiation-field
@@ -19,8 +19,11 @@ Design (not a port — see SURVEY.md):
     and MPI allreduce, ref: SKIRT/utils/LockFree.hpp:24,
     SKIRT/mpi/ProcessManager.cpp:206);
   * RNG is counter-based (threefry) keyed on (seed, history index, event,
-    purpose) — fully reproducible under any parallel decomposition, which
-    the reference only guarantees serially (ref: SKIRT/core/Random.hpp:34).
+    purpose) — identical packet histories under any parallel decomposition,
+    which the reference only guarantees serially (ref:
+    SKIRT/core/Random.hpp:34); the sums over them are equal up to f32
+    summation order, since GPU scatter-adds run as atomics in no fixed
+    order.
 """
 
 __version__ = "0.1.0"

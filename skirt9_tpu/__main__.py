@@ -4,9 +4,9 @@ Counterpart of the reference's CLI (ref: SKIRT/main/SkirtMain.cpp:15,
 SkirtCommandLineHandler.cpp:31 flags). Usage:
 
     python -m skirt9_tpu model.ski [more.ski ...] [-o outdir] [-s seed]
-        [-p packets] [-b batch] [-e]
+        [-p packets] [-b batch] [--max-events N] [-e]
 
-Accepted-for-compatibility but inert flags: -t (thread count — the TPU
+Accepted-for-compatibility but inert flags: -t (thread count — the
 engine parallelizes by batch), -m/-v/-d (memory/verbose/data-parallel
 logging modes).
 """
@@ -14,15 +14,33 @@ logging modes).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
 
 
+@dataclasses.dataclass
+class RunResult:
+    """One ski file's run: the simulation, its radiation field (None
+    without a stored field) and the files it wrote."""
+
+    sim: object
+    rf: object
+    paths: list
+
+
 def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None) -> list[RunResult]:
+    """Parse the command line and run each ski file; returns one
+    RunResult per simulated ski file (main() is this plus exit code 0)."""
     ap = argparse.ArgumentParser(
         prog="skirt9_tpu",
-        description="TPU-native Monte Carlo radiative transfer (SKIRT 9 "
+        description="Monte Carlo radiative transfer in JAX (SKIRT 9 "
                     "capability set)")
     ap.add_argument("skifiles", nargs="*",
                     help=".ski parameter files (none: interactive wizard, "
@@ -35,6 +53,9 @@ def main(argv=None) -> int:
                     help="packet batch size per device")
     ap.add_argument("-e", "--emulate", action="store_true",
                     help="setup only, zero packets (ref: emulation mode)")
+    ap.add_argument("--max-events", type=int, default=64,
+                    help="bound on scattering events per packet history "
+                    "(resonant-line media need more than the default)")
     ap.add_argument("-t", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("-m", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("-v", action="store_true", help=argparse.SUPPRESS)
@@ -48,18 +69,19 @@ def main(argv=None) -> int:
     ap.add_argument("--dd", action="store_true",
                     help="spatial domain decomposition: shard the per-cell "
                     "density/radiation-field tables into x-slabs over the "
-                    "-d devices (for grids too large for one chip's HBM); "
+                    "-d devices (for grids too large for one device); "
                     "non-Cartesian grids decompose through a voxel raster")
     args = ap.parse_args(argv)
 
     from .config.ski import load_ski
     from .utils import log as logmod
+    from .utils.compile_cache import enable_compile_cache
 
     if args.export_schema:
         from .config.schema import export_smile
         export_smile(args.export_schema)
         print(f"Schema written to {args.export_schema}")
-        return 0
+        return []
 
     os.makedirs(args.outdir, exist_ok=True)
 
@@ -73,22 +95,27 @@ def main(argv=None) -> int:
         path = os.path.join(args.outdir, name + ".ski")
         run_wizard(path)
         print(f"Created {path}. Run it with: python -m skirt9_tpu {path}")
-        return 0
+        return []
+    import jax
+    enable_compile_cache()
+    results = []
     for ski in args.skifiles:
         prefix = os.path.splitext(os.path.basename(ski))[0]
         # file log next to the outputs (ref: FileLog; <prefix>_log.txt)
         log = logmod.configure(prefix, args.outdir,
                                level="info" if not args.m else "info")
         t0 = time.perf_counter()
+        devs = jax.devices()
+        log.info(f"device: {devs[0].platform} {devs[0].device_kind} "
+                 f"x{len(devs)}")
         log.info(f"Constructing a simulation from ski file {ski}...")
         with log.timed("setup"):
             sim = load_ski(ski, num_packets=args.packets,
-                           batch_size=args.batch, seed=args.seed)
+                           batch_size=args.batch, seed=args.seed,
+                           max_events=args.max_events)
         if args.devices != 1:
-            import jax
             import numpy as np
             from jax.sharding import Mesh
-            devs = jax.devices()
             n = len(devs) if args.devices == 0 else args.devices
             if n > len(devs):
                 log.warning(f"requested {n} devices, found {len(devs)}")
@@ -97,7 +124,6 @@ def main(argv=None) -> int:
                 sim.mesh = Mesh(np.array(devs[:n]), (sim.mesh_axis,))
                 if args.dd:
                     sim.dd = True
-                    sim._build_sweep_tables()   # DD disables sweep engines
                     log.info(f"spatial domain decomposition over {n} "
                              f"devices (sharded per-cell tables)")
                 else:
@@ -129,7 +155,8 @@ def main(argv=None) -> int:
         for p in paths:
             log.info(f"  wrote {p}")
         log.memory()
-    return 0
+        results.append(RunResult(sim=sim, rf=rf, paths=paths))
+    return results
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Declarative item schema: defaults + conditional relevance.
 
-TPU-build counterpart of the SMILE schema layer (ref: SMILE/schema/
+Counterpart of the SMILE schema layer (ref: SMILE/schema/
 NameManager.hpp:42 name-set accumulation, BooleanExpression.hpp:56
 condition evaluation, ItemInfo ATTRIBUTE_DEFAULT_VALUE /
 ATTRIBUTE_RELEVANT_IF declarations). Instead of C++ macros compiled into a

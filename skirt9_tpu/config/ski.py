@@ -1,6 +1,6 @@
 """ski-file importer: build a Simulation from a SKIRT 9 parameter file.
 
-TPU-native counterpart of the SMILE config stack (ref: SMILE/serialize/
+Batched counterpart of the SMILE config stack (ref: SMILE/serialize/
 XmlHierarchyCreator, SKIRT/core/SimulationItemRegistry.cpp — 390 item
 types; SkirtUnitDef for unit-aware attribute parsing). Instead of a macro
 DSL + runtime schema, item types map to Python builder functions registered
@@ -2273,8 +2273,10 @@ def _load_ski(path: str, num_packets: int | None = None,
         # _hasLymanAlpha)
         path_length_bias = 0.0
 
+    # the grid's own bound on cells crossed by one straight path: a smaller
+    # march length would silently truncate long paths on large grids
     max_steps = grid.max_steps() if hasattr(grid, "max_steps") else 128
-    opts = lc.TransportOptions(max_steps=min(max_steps, 256),
+    opts = lc.TransportOptions(max_steps=max_steps,
                                max_events=max_events,
                                store_rf=rf_borders is not None,
                                force_scattering=force_scattering,

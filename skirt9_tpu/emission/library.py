@@ -1,6 +1,6 @@
 """Spatial cell libraries: group cells for shared dust-emission spectra.
 
-TPU-native counterpart of the reference's SpatialCellLibrary family
+Batched counterpart of the reference's SpatialCellLibrary family
 (ref: SKIRT/core/SpatialCellLibrary.hpp, FieldStrengthCellLibrary.cpp:20-70,
 TemperatureWavelengthCellLibrary.cpp:25-120, AllCellsLibrary; consumed by
 DustSecondarySource.cpp:214-258). The reference walks cells sequentially,

@@ -14,7 +14,7 @@ from the transition-matrix recursion:
       B_{f,i} = sum_{f' >= f} A_{f',i};  X_0 = 1,
       X_j = sum_{i<j} B_{j,i} X_i / A_{j-1,j};  P = X / sum X.
 
-TPU-first structure: the per-cell upward rates are a single dense matmul
+Vectorized structure: the per-cell upward rates are a single dense matmul
 u_lambda[cells, R] @ W[R, pairs] (W precomputed from the size-bin cross
 sections and the enthalpy grid), and the emissivity is another matmul
 P[cells, NT] @ M[NT, L]. The sequential part is only the NT-step recursion,

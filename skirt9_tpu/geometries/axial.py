@@ -4,7 +4,7 @@ The reference gives every axial geometry a bespoke analytic sampler
 (ref: SKIRT/core/TorusGeometry.hpp, ConicalShellGeometry.hpp,
 TTauriDiskGeometry.hpp, RingGeometry.hpp, AnnulusGeometry.hpp,
 DonutGeometry.hpp, BrokenExpDiskGeometry.hpp, ParaboloidGeometry.hpp,
-HyperboloidGeometry.hpp and their *Shell* variants).  The TPU-native design
+HyperboloidGeometry.hpp and their *Shell* variants).  The batched design
 replaces the per-class inversion code with ONE mechanism: a host-built 2D
 (R, z) probability table whose flattened cdf is inverted on device with a
 single `searchsorted` per packet plus uniform jitter inside the chosen cell

@@ -69,7 +69,8 @@ class RotateDecorator(Geometry):
 
     def sample(self, keys, tag: int = rng.LAUNCH_POSITION):
         p = self.base.sample(keys, tag)
-        return p @ jnp.asarray(self._R.T, jnp.float32)
+        return jnp.dot(p, jnp.asarray(self._R.T, jnp.float32),
+                       precision=jax.lax.Precision.HIGHEST)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,7 @@ entities). Concrete subclasses per snapshot type, matching the reference:
                              AdaptiveMeshGeometry.hpp:46, regular/AMR mesh)
   VoronoiMeshGeometry       (VoronoiMeshGeometry.hpp:48, Voronoi sites)
 
-TPU-first design: the geometry contract here is the package's batched one
+Batched design: the geometry contract here is the package's batched one
 (density_np on host for medium-state setup; sample(keys, tag) -> (B,3)
 device positions). Entity selection is a mass-cdf searchsorted on device;
 in-entity positions are closed-form per cell shape (box / cylindrical /

@@ -1,6 +1,6 @@
 """Vector fields: velocity / magnetic-field maps for geometric media.
 
-TPU-native counterpart of the reference's VectorField family
+Batched counterpart of the reference's VectorField family
 (ref: SKIRT/core/VectorField.hpp:25 and the concrete classes
 RadialVectorField.cpp, CylindricalVectorField.cpp,
 HollowRadialVectorField.cpp, HubbleRadialVectorField.cpp,

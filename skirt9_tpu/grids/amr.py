@@ -1,6 +1,6 @@
 """Adaptive-mesh (AMR) snapshot import and spatial grid.
 
-TPU-native counterpart of the reference's AdaptiveMeshSnapshot +
+Batched counterpart of the reference's AdaptiveMeshSnapshot +
 AdaptiveMeshSpatialGrid (ref: SKIRT/core/AdaptiveMeshSnapshot.hpp:121 —
 Morton-ordered tree text format with '!' nonleaf lines — and the path
 tracing machinery). Design:

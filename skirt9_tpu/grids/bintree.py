@@ -6,10 +6,6 @@ cycling x, y, z with depth; a leaf three levels down equals one octree
 child but intermediate leaves are anisotropic slabs). Device representation
 mirrors grids/octree.py: flat node arrays with a fixed-depth top-down
 descent for locate, axis-aligned leaf boxes for the march step.
-
-The multi-level sweep (transport/mlsweep.py) supports these grids through
-its per-axis refinement levels: a bintree leaf at depth d has per-axis
-sizes box/2^(dx,dy,dz) with dx+dy+dz = d.
 """
 
 from __future__ import annotations
@@ -33,8 +29,6 @@ class BinTreeGrid(NamedTuple):
     box_lo: jax.Array
     box_hi: jax.Array
     levels: int             # max depth (splits)
-    leafmap: jax.Array = None
-    fine_n: tuple = ()
 
     @property
     def ncells(self) -> int:
@@ -42,14 +36,6 @@ class BinTreeGrid(NamedTuple):
 
     def locate(self, pos: jax.Array) -> jax.Array:
         inside = jnp.all((pos >= self.box_lo) & (pos < self.box_hi), axis=-1)
-        if self.leafmap is not None:
-            nf = jnp.asarray(self.fine_n, jnp.int32)
-            h = (self.box_hi - self.box_lo) / nf.astype(jnp.float32)
-            ijk = jnp.clip(jnp.floor((pos - self.box_lo) / h).astype(
-                jnp.int32), 0, nf - 1)
-            flat = (ijk[..., 0] * self.fine_n[1] + ijk[..., 1]) \
-                * self.fine_n[2] + ijk[..., 2]
-            return jnp.where(inside, self.leafmap[flat], -1).astype(jnp.int32)
 
         def descend(node, _):
             child = self.node_child[node]

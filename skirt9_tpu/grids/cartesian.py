@@ -1,6 +1,6 @@
 """Cartesian spatial grid with arbitrary per-axis border meshes.
 
-TPU-native replacement for the reference's CartesianSpatialGrid and its
+Batched replacement for the reference's CartesianSpatialGrid and its
 pull-iterator segment generator (ref: SKIRT/core/CartesianSpatialGrid.cpp:87):
 traversal is a branch-free, fully vectorized DDA step usable inside
 `lax.scan` over a whole packet batch. Cell linear index m = (ix*ny + iy)*nz + iz.
@@ -179,7 +179,7 @@ def make_cartesian(extent, shape, meshes=None, force_general: bool = False):
     (ref: CartesianSpatialGrid with Mesh children, SKIRT/core/MeshSpatialGrid).
 
     Without custom meshes the UNIFORM grid variant is returned — its
-    traversal needs no border-table gathers (the TPU hot-path bottleneck).
+    traversal needs no border-table gathers in the hot march.
     """
     if meshes is None and not force_general:
         lo = np.array([extent[a][0] for a in range(3)], np.float64)
@@ -204,9 +204,8 @@ def make_cartesian(extent, shape, meshes=None, force_general: bool = False):
 
 class UniformCartesianGrid(NamedTuple):
     """Uniform-spacing Cartesian grid: all traversal math is arithmetic —
-    no border-table gathers in the hot march (the per-step gathers are the
-    TPU throughput bottleneck; the general CartesianGrid costs ~6 table
-    gathers per step, this costs zero)."""
+    no border-table gathers in the hot march (the general CartesianGrid
+    costs ~6 table gathers per step, this costs zero)."""
 
     lo: jax.Array     # (3,) box minimum [m]
     hi: jax.Array     # (3,) box maximum [m]

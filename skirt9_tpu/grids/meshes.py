@@ -1,6 +1,6 @@
 """The Mesh family: 1-D border distributions used by structured grids.
 
-TPU-native counterpart of the reference's Mesh hierarchy (ref:
+Batched counterpart of the reference's Mesh hierarchy (ref:
 SKIRT/core/Mesh.hpp, LinMesh, PowMesh.cpp:11-20, SymPowMesh.cpp:11-33,
 LogMesh.cpp:11-20, FileMesh, ListMesh; grid formulas in
 SKIRT/utils/NR.hpp:221-320). Every builder returns normalized border

@@ -1,6 +1,6 @@
 """Octree spatial grid: density-policy host build + flattened device traversal.
 
-TPU-native re-design of the reference's tree grids (ref:
+Batched re-design of the reference's tree grids (ref:
 SKIRT/core/TreeSpatialGrid.hpp:28, PolicyTreeSpatialGrid, DensityTreePolicy
 .hpp:76, OctTreeNode): the pointer tree with per-cell sorted neighbor lists
 (TreeSpatialGrid.cpp:132-216) becomes four flat device arrays
@@ -38,11 +38,6 @@ class OctreeGrid(NamedTuple):
     box_lo: jax.Array       # (3,)
     box_hi: jax.Array       # (3,)
     levels: int             # static max depth
-    # optional finest-level raster (fine voxel -> leaf id): locate becomes
-    # ONE flat gather instead of a `levels`-deep descent of serialized
-    # gathers — attached by Simulation when the multi-level sweep engages
-    leafmap: jax.Array = None   # (nfx*nfy*nfz,) int32 or None
-    fine_n: tuple = ()          # static (nfx, nfy, nfz)
 
     @property
     def ncells(self) -> int:
@@ -53,14 +48,6 @@ class OctreeGrid(NamedTuple):
     def locate(self, pos: jax.Array) -> jax.Array:
         """(B,3) -> (B,) leaf cell index, -1 outside the root box."""
         inside = jnp.all((pos >= self.box_lo) & (pos < self.box_hi), axis=-1)
-        if self.leafmap is not None:
-            nf = jnp.asarray(self.fine_n, jnp.int32)
-            h = (self.box_hi - self.box_lo) / nf.astype(jnp.float32)
-            ijk = jnp.clip(jnp.floor((pos - self.box_lo) / h).astype(
-                jnp.int32), 0, nf - 1)
-            flat = (ijk[..., 0] * self.fine_n[1] + ijk[..., 1]) \
-                * self.fine_n[2] + ijk[..., 2]
-            return jnp.where(inside, self.leafmap[flat], -1).astype(jnp.int32)
 
         def descend(node, _):
             child = self.node_child[node]

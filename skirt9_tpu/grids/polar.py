@@ -6,7 +6,7 @@ Cylinder3DSpatialGrid (ref: SKIRT/core/Sphere2DSpatialGrid.hpp,
 Sphere3DSpatialGrid.hpp, Cylinder3DSpatialGrid.hpp): shells x polar cones
 (x azimuthal half-planes), and annuli x half-planes x z-slabs.
 
-Traversal strategy (TPU-first): instead of the reference's per-surface
+Traversal strategy (vectorized): instead of the reference's per-surface
 incremental index bookkeeping (whose cone/plane re-hit corner cases need
 `nextafter` escape hatches, ref: PathSegmentGenerator.hpp:148-153), each
 step computes the exact minimum positive crossing distance over the current

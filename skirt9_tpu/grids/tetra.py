@@ -1,6 +1,6 @@
 """Tetrahedral spatial grid: scipy Delaunay host build + face-plane walk.
 
-TPU-native counterpart of the reference's TetraMeshSpatialGrid (ref:
+Batched counterpart of the reference's TetraMeshSpatialGrid (ref:
 SKIRT/core/TetraMeshSpatialGrid.cpp:388-407 TetGen Delaunay build, :552
 block search, traversal via per-face exit tests). Differences by design:
 

@@ -1,6 +1,6 @@
 """Voronoi spatial grid: scipy/Qhull host build + bisector-walk traversal.
 
-TPU-native counterpart of the reference's VoronoiMeshSpatialGrid /
+Batched counterpart of the reference's VoronoiMeshSpatialGrid /
 VoronoiMeshSnapshot (ref: SKIRT/core/VoronoiMeshSnapshot.cpp:557-663 build
 via embedded Voro++, :1058-1140 bisector-plane ray walk). Differences by
 design:

@@ -1,6 +1,6 @@
 """Imported snapshots: particle (SPH) and cell data as media and sources.
 
-TPU-native counterpart of the reference's Snapshot framework
+Batched counterpart of the reference's Snapshot framework
 (ref: SKIRT/core/Snapshot.hpp:47, ParticleSnapshot.hpp:25,
 CellSnapshot, TextInFile.hpp:87 column import; SmoothingKernel.hpp:22):
 
@@ -474,15 +474,6 @@ class FamilyParticleSource:
         return self.snapshot.velocity is not None
 
     @property
-    def lam_range(self) -> tuple | None:
-        """Wavelength support for stratified bin-pure launches; entity
-        velocities shift the emitted wavelength AFTER sampling, which would
-        break stratum purity, so velocity-importing sources opt out."""
-        if self.snapshot.velocity is not None:
-            return None
-        return self.family_tables.lam_range
-
-    @property
     def luminosity(self) -> float:
         return float(np.sum(self.family_tables.entity_luminosities(
             self.scales, self.params)))
@@ -523,20 +514,13 @@ class FamilyParticleSource:
         dirn_r = rng.isotropic_direction(keys, rng.LAUNCH_POSITION + 60)
         pos = tabs["pos"][p] + (q * tabs["h"][p])[..., None] * dirn_r
         dirn = rng.isotropic_direction(keys, rng.LAUNCH_DIRECTION)
-        if "strata" in tabs:
-            # bin-pure lane groups for wavelength-binned sweep deposits
-            lam, w_strat = self.family_tables.sample_wavelength_stratified(
-                keys, p, tabs["corner_idx"], tabs["corner_cdf"],
-                tabs["strata"], tabs.get("strata_w"))
-        else:
-            lam = self.family_tables.sample_wavelength(
-                keys, p, tabs["corner_idx"], tabs["corner_cdf"])
-            w_strat = 1.0
+        lam = self.family_tables.sample_wavelength(
+            keys, p, tabs["corner_idx"], tabs["corner_cdf"])
         # importance correction: the linear corner mixture proposal ->
         # the reference's geometric (log-interpolated) parameter mixture
         wgt = self.family_tables.mixture_weight(
             lam, p, tabs["corner_idx"], tabs["corner_w"],
-            tabs["lin_over_geo"]) * w_strat
+            tabs["lin_over_geo"])
         inv_c = 1.0 / c.C_LIGHT
         v = tabs["v"][p]
         lam = lam * (1.0 - jnp.sum(dirn * v, axis=-1) * inv_c)
@@ -562,12 +546,6 @@ class CellFamilySource:
     @property
     def emits_with_velocity(self) -> bool:
         return self.velocity is not None
-
-    @property
-    def lam_range(self):
-        if self.velocity is not None:
-            return None
-        return self.family_tables.lam_range
 
     @property
     def luminosity(self) -> float:
@@ -600,17 +578,11 @@ class CellFamilySource:
                         for i in range(3)], axis=-1)
         pos = tabs["lo"][p] + u3 * (tabs["hi"][p] - tabs["lo"][p])
         dirn = rng.isotropic_direction(keys, rng.LAUNCH_DIRECTION)
-        if "strata" in tabs:
-            lam, w_strat = self.family_tables.sample_wavelength_stratified(
-                keys, p, tabs["corner_idx"], tabs["corner_cdf"],
-                tabs["strata"], tabs.get("strata_w"))
-        else:
-            lam = self.family_tables.sample_wavelength(
-                keys, p, tabs["corner_idx"], tabs["corner_cdf"])
-            w_strat = 1.0
+        lam = self.family_tables.sample_wavelength(
+            keys, p, tabs["corner_idx"], tabs["corner_cdf"])
         wgt = self.family_tables.mixture_weight(
             lam, p, tabs["corner_idx"], tabs["corner_w"],
-            tabs["lin_over_geo"]) * w_strat
+            tabs["lin_over_geo"])
         inv_c = 1.0 / c.C_LIGHT
         v = tabs["v"][p]
         lam = lam * (1.0 - jnp.sum(dirn * v, axis=-1) * inv_c)
@@ -637,12 +609,6 @@ class EntityFamilySource:
     @property
     def emits_with_velocity(self) -> bool:
         return self.velocity is not None
-
-    @property
-    def lam_range(self):
-        if self.velocity is not None:
-            return None
-        return self.family_tables.lam_range
 
     @property
     def luminosity(self) -> float:
@@ -672,17 +638,11 @@ class EntityFamilySource:
                      0, tabs["cdf"].shape[0] - 1).astype(jnp.int32)
         pos = self.sampler._entity_position(keys, p, rng.LAUNCH_POSITION)
         dirn = rng.isotropic_direction(keys, rng.LAUNCH_DIRECTION)
-        if "strata" in tabs:
-            lam, w_strat = self.family_tables.sample_wavelength_stratified(
-                keys, p, tabs["corner_idx"], tabs["corner_cdf"],
-                tabs["strata"], tabs.get("strata_w"))
-        else:
-            lam = self.family_tables.sample_wavelength(
-                keys, p, tabs["corner_idx"], tabs["corner_cdf"])
-            w_strat = 1.0
+        lam = self.family_tables.sample_wavelength(
+            keys, p, tabs["corner_idx"], tabs["corner_cdf"])
         wgt = self.family_tables.mixture_weight(
             lam, p, tabs["corner_idx"], tabs["corner_w"],
-            tabs["lin_over_geo"]) * w_strat
+            tabs["lin_over_geo"])
         inv_c = 1.0 / c.C_LIGHT
         v = tabs["v"][p]
         lam = lam * (1.0 - jnp.sum(dirn * v, axis=-1) * inv_c)

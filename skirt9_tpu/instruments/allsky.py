@@ -163,7 +163,8 @@ def detect(cfg: AllSkyInstrumentCfg, tables: dict, acc: dict,
     bq = jnp.clip(b, 0, nb - 1)
 
     # rotate into the oriented sky frame (+x crosshair, +z up)
-    k = arrival_dir @ tables["frame"].T
+    k = jnp.dot(arrival_dir, tables["frame"].T,
+                precision=jax.lax.Precision.HIGHEST)
     kx, ky, kz = k[..., 0], k[..., 1], k[..., 2]
     if cfg.projection == "healpix":
         theta = jnp.arccos(jnp.clip(kz, -1, 1))

@@ -1,6 +1,6 @@
 """Dynamic medium state: recipes updating densities from the radiation field.
 
-TPU-native counterpart of the reference's DynamicStateRecipe machinery
+Batched counterpart of the reference's DynamicStateRecipe machinery
 (ref: SKIRT/core/DynamicStateRecipe.hpp:67, ClearDensityRecipe.cpp:20-35,
 DustDestructionRecipe.cpp:49-90, LinearDustDestructionRecipe.cpp:21-31).
 The reference updates per-cell MaterialState objects one cell at a time

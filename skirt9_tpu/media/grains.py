@@ -1,6 +1,6 @@
 """Multi-grain dust mixes: size distributions, grain optics, populations.
 
-TPU-native counterpart of the reference's MultiGrainDustMix pipeline
+Batched counterpart of the reference's MultiGrainDustMix pipeline
 (ref: SKIRT/core/MultiGrainDustMix.hpp:108, GrainComposition.hpp:54,
 GrainSizeDistribution.hpp:33, GrainPopulation): optical properties are
 integrated over grain populations (composition x size distribution x size

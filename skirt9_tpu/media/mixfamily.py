@@ -6,7 +6,7 @@ can hand each cell its own mix selected by an imported parameter;
 FragmentDustMixDecorator.hpp:39 — a multi-grain mix decomposed into its
 population fragments, each carrying per-cell weight state).
 
-TPU-native design: a family of K mixes expands into K MEDIUM COMPONENTS
+Batched design: a family of K mixes expands into K MEDIUM COMPONENTS
 sharing the engine's existing multi-component machinery — cell c with
 family index f gets nd[c, k] = n(c) * [k == f]. Per-cell dispatch
 becomes plain dense per-component math (no per-cell virtual calls, no

@@ -1,6 +1,6 @@
 """Nebular continuum and hydrogen recombination-line emission.
 
-TPU-native counterpart of the reference's NebularContinuumEmission +
+Batched counterpart of the reference's NebularContinuumEmission +
 NebularLineEmission (ref: SKIRT/core/NebularContinuumEmission.hpp:26-31,
 NebularLineEmission.cpp; consumed through EmittingGasMix.hpp). The
 reference embeds large Cloudy/Ercolano-Storey/CHIANTI data tables; this

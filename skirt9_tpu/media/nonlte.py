@@ -12,7 +12,7 @@ with radiative (A + stimulated/absorbed B J) and collisional (C + detailed
 balance) rates, then derive per-line emissivities (fed to the generic
 GasLineSource) and line-center opacities (added to the medium tables).
 
-TPU-first structure: the reference loops cells on threads and calls a dense
+Vectorized structure: the reference loops cells on threads and calls a dense
 LU solve per cell; here the rate matrices for ALL cells are assembled as one
 (ncells, N, N) tensor with scatter-adds and solved by a single batched
 `jnp.linalg.solve` — the natural XLA mapping (batched small-matrix LAPACK on

@@ -1,6 +1,6 @@
 """Medium system: per-cell state + material optical properties, as tables.
 
-TPU-native redesign of the reference's MediumSystem/MediumState/MaterialMix
+Batched redesign of the reference's MediumSystem/MediumState/MaterialMix
 triangle (ref: SKIRT/core/MediumSystem.hpp:99, MediumState.hpp:131,
 MaterialMix.hpp:195): instead of virtual per-cell dispatch, the medium is a
 pair of dense device tables —

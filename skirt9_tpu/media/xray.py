@@ -1,6 +1,6 @@
 """X-ray atomic gas: photo-absorption, fluorescence, electron scattering.
 
-TPU-native counterpart of the reference's XRayAtomicGasMix (ref:
+Batched counterpart of the reference's XRayAtomicGasMix (ref:
 SKIRT/core/XRayAtomicGasMix.hpp:288, .cpp:54-160 resource loading,
 Verner et al. 1996 analytic photo-absorption fits). The reference reads
 its atomic data from resource files (XRay_PA.txt, XRay_FL.txt, XRay_CS/

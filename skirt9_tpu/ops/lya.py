@@ -1,7 +1,7 @@
 """Lyman-alpha resonant line transfer: Voigt cross sections and atom
 velocity sampling.
 
-TPU-native counterpart of the reference's Lya module (ref:
+Batched counterpart of the reference's Lya module (ref:
 SKIRT/core/LyaUtils.hpp:105 cross-section/atom-velocity sampling,
 LyaNeutralHydrogenGasMix.hpp:33, LyaOptions.hpp:17 core-skipping schemes).
 Physics follows the standard treatment (Dijkstra 2014 review; Tasitsiomi
@@ -14,7 +14,7 @@ Physics follows the standard treatment (Dijkstra 2014 review; Tasitsiomi
            H(a,0) ~ 1)
 
 All functions are batched device ops; rejection loops run a fixed number of
-masked rounds (TPU-friendly bounded iteration).
+masked rounds (bounded, vectorizable iteration).
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def sample_parallel_velocity(keys, tag, a, x, iters: int = 24):
     """Sample the atom velocity component along the incoming photon,
     u ~ exp(-u^2) / ((x-u)^2 + a^2): Zheng & Miralda-Escude (2002)
     two-piece Lorentzian comparison function with the u0 fit, fixed masked
-    rejection rounds (TPU-bounded loop; expected acceptance ~1/3 per round,
+    rejection rounds (bounded loop; expected acceptance ~1/3 per round,
     so unconverged lanes after 24 rounds are < 1e-4 and fall back to a
     Gaussian core draw). For x >= 8 the distribution is a Gaussian around
     1/x (ref: VoigtProfile::sample, SKIRT/core/VoigtProfile.cpp:41-103).

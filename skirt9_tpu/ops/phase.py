@@ -8,6 +8,7 @@ All functions take/return (B,) or (B,3) arrays.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 _ISO = 1.0 / (4.0 * jnp.pi)
@@ -125,7 +126,8 @@ def tabulated_phase_value(tabs, lam, ct):
         # dense 2-D lookup: one-hot over rows x one-hot over cols
         P = tabs["phase"]
         oh_r = (ii[:, None] == jnp.arange(P.shape[0], dtype=jnp.int32))
-        rows = oh_r.astype(P.dtype) @ P            # (B, A)
+        rows = jnp.dot(oh_r.astype(P.dtype), P,
+                       precision=jax.lax.Precision.HIGHEST)   # (B, A)
         return smp.take_along_small(rows, jj)
 
     v00 = at(i, j)
@@ -145,7 +147,8 @@ def tabulated_phase_sample(tabs, lam, u):
     irow = jnp.where(f > 0.5, i + 1, i)
     C = tabs["cdf"]
     oh_r = (irow[:, None] == jnp.arange(C.shape[0], dtype=jnp.int32))
-    rows = oh_r.astype(C.dtype) @ C                # (B, A)
+    rows = jnp.dot(oh_r.astype(C.dtype), C,
+                   precision=jax.lax.Precision.HIGHEST)       # (B, A)
     j = jnp.clip(jnp.sum((rows < u[:, None]).astype(jnp.int32),
                          axis=-1) - 1, 0, C.shape[1] - 2)
     c0 = smp.take_along_small(rows, j)

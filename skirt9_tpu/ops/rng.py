@@ -3,8 +3,10 @@
 The reference uses per-thread Mersenne twisters, reproducible only in serial
 runs (ref: SKIRT/core/Random.hpp:34-57, Random.cpp:24-43). Here every random
 draw is a pure function of (seed, history index, event counter, purpose tag)
-via threefry key folding, so results are bit-identical under ANY device/batch
-decomposition — strictly stronger determinism than the reference.
+via threefry key folding, so every packet history is identical under ANY
+device/batch decomposition — strictly stronger determinism than the
+reference. Sums over histories are equal up to f32 summation order (GPU
+scatter-adds run as atomics in no fixed order).
 
 Samplers mirror the reference's Random API (uniform / gauss / expon /
 exponCutoff / direction / cdf inversion; ref: SKIRT/core/Random.hpp:57-188)

@@ -1,6 +1,6 @@
 """Numerical toolkit: interpolation, cdf construction and batched inversion.
 
-TPU-native analog of the reference's NR namespace
+Batched analog of the reference's NR namespace
 (ref: SKIRT/utils/NR.hpp — interpolation, cdf construction, sampling).
 Host-side cdf *construction* uses numpy f64 (setup time, exactness matters);
 device-side *inversion* is batched jnp (hot path).
@@ -52,11 +52,9 @@ def cdf_loglog(xv: np.ndarray, pv: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 # ---------------------------------------------------- device (hot path, batched)
 #
-# Small-table lookups avoid XLA's serialized gather/searchsorted lowering
-# (~7 ns/element on TPU, measured tools/bench_gather.py): a dense
-# compare-reduce over the table runs on the VPU at >100x that rate for
-# tables up to a few thousand entries. Above the cutoff the serialized
-# gather wins again.
+# Small-table lookups use a dense compare-reduce over the table instead of
+# a gather/searchsorted, for tables up to _DENSE_MAX entries; larger tables
+# take the gather. Whether the dense form still pays on a GPU is open.
 
 _DENSE_MAX = 2048
 

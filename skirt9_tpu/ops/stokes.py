@@ -1,6 +1,6 @@
 """Polarization: batched Stokes-vector algebra and Mueller scattering.
 
-TPU-native counterpart of the reference's StokesVector + polarized
+Batched counterpart of the reference's StokesVector + polarized
 scattering machinery (ref: SKIRT/utils/StokesVector.hpp:26, DustMix
 SphericalPolarization mode per Peest & Hoang 2017, DipolePhaseFunction
 polarized Thomson scattering). All functions are batched over (B,).

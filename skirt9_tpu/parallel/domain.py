@@ -7,10 +7,10 @@ ref: SKIRT/main/SkirtCommandLineHandler.cpp:329-332). Its communication
 backend (ref: SKIRT/mpi/ProcessManager.cpp:206-259) only offers whole-table
 allreduce. Here the two large per-cell tables — the medium number densities
 `nd[cell, h]` and the radiation field `rf[cell, bin]` — are sharded into
-axis-aligned x-slabs over the mesh, so grids larger than one chip's HBM
-become possible.
+axis-aligned x-slabs over the mesh, so grids larger than one device's
+memory become possible.
 
-TPU-native design decision — packets do NOT migrate. A naive translation of
+Design decision — packets do NOT migrate. A naive translation of
 "domain decomposition" would move packets between devices whenever they
 cross a subdomain face (alltoall rebatching). That fights the hardware:
 variable-size exchanges need dynamic shapes, and the packet population per
@@ -40,8 +40,8 @@ decomposition inverts the data flow:
   * observer-direction (peel-off) optical depths are `psum`s of per-slab
     partial taus.
 
-The collectives are all_gather + psum riding ICI; there is no host round
-trip and no dynamic shape anywhere.
+The collectives are all_gather, all_to_all and psum; there is no host
+round trip and no dynamic shape anywhere.
 
 Scope of this first engine: uniform Cartesian grids, forced scattering with
 composite path-length bias, HG scattering, multi-component media, binned
@@ -63,7 +63,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..grids.cartesian import CartesianGrid, UniformCartesianGrid
 from ..instruments import distant as dinst
 from ..media import system as msys
-from ..ops import phase as phs
 from ..ops import rng
 from ..sources import base as src
 from ..transport import lifecycle as lc
@@ -176,72 +175,16 @@ def _slab_march(grid_loc, nd_local, pos, dirn, sigma, mask, max_steps):
     m = mask & (c0 >= 0)
     cells, ds = lc.march_geometry(grid_loc, p0, dirn, c0, max_steps, m)
     nd_steps = nd_local[cells]                       # (S, N, H)
-    dtau = jnp.einsum("snh,nh->sn", nd_steps, sigma) * ds
+    dtau = jnp.einsum("snh,nh->sn", nd_steps, sigma,
+                      precision=jax.lax.Precision.HIGHEST) * ds
     return p0, cells, ds, dtau
-
-
-def build_local_xl(dec: SlabDecomposition, med: msys.MediumTables):
-    """Per-device XL sweep tables for the local x-slab subgrids.
-
-    Returns (rho_hi_stacked, rho_lo_stacked, rs_stacked_or_None, proto):
-    the stacked (n_dev, C, nmax_l, 3, U, V) plane tables (sharded over the
-    mesh by dd_segment; int8 q1/q2 + per-row scales when EVERY device slab
-    passes sweepxl's contrast gate, bf16 hi/lo otherwise — the kernel
-    branch is static meta shared by all shard_map programs) and a
-    prototype XLTables whose STATIC geometry is shared by every device —
-    the local box is expressed in slab-local coordinates (x measured from
-    the slab's own lower border, so `lo = (0, lo_y, lo_z)` is
-    device-independent and positions shift by the traced per-device x
-    offset inside the kernel caller)."""
-    from ..transport import sweepxl as xl
-
-    n_dev = dec.n_slabs
-    nx_l, ny, nz = dec.nx_local, dec.ny, dec.nz
-    C = med.nd.shape[1]
-    nd3 = np.asarray(med.nd, np.float32).reshape(n_dev * nx_l, ny, nz, C)
-    nmax = max(nx_l, ny, nz)
-    U = V = nmax
-    tab = np.zeros((n_dev, C, nmax, 3, U, V), np.float32)
-    for s in range(n_dev):
-        r4 = nd3[s * nx_l:(s + 1) * nx_l]
-        for c in range(C):
-            r3 = r4[..., c]
-            tab[s, c, :nx_l, 0, :ny, :nz] = r3
-            tab[s, c, :ny, 1, :nx_l, :nz] = r3.transpose(1, 0, 2)
-            tab[s, c, :nz, 2, :nx_l, :ny] = r3.transpose(2, 0, 1)
-    qs = [xl._quantize_rows(tab[s]) for s in range(n_dev)]
-    if all(q is not None for q in qs):
-        hi_t = jnp.asarray(np.stack([q[0] for q in qs]))
-        lo_t = jnp.asarray(np.stack([q[1] for q in qs]))
-        rs_t = jnp.asarray(np.stack([q[2] for q in qs]))
-    else:
-        hi_t = jnp.asarray(tab, jnp.bfloat16)
-        lo_t = jnp.asarray(tab - np.asarray(hi_t, np.float32),
-                           jnp.bfloat16)
-        rs_t = None
-    # occupancy union across devices (occ is static kernel metadata and
-    # must be identical on every shard_map program)
-    occ = []
-    for a in range(3):
-        nzr = np.flatnonzero(
-            np.abs(tab[:, :, :, a]).sum(axis=(0, 1, 3, 4)) > 0)
-        occ.append((int(nzr[0]), int(nzr[-1]) + 1) if nzr.size else (0, 0))
-    lo_y = float(dec.slab_lohi[0, 1])
-    lo_z = float(dec.slab_lohi[0, 2])
-    h = np.asarray(dec.h, np.float64)
-    proto = xl.XLTables(
-        rho_hi=None, rho_lo=None,
-        n=(nx_l, ny, nz), lo=(0.0, lo_y, lo_z),
-        h=(float(h[0]), float(h[1]), float(h[2])),
-        nmax=nmax, U=U, V=V, occ=tuple(occ))
-    return hi_t, lo_t, rs_t, proto
 
 
 def dd_segment(mesh: Mesh, dec: SlabDecomposition, grid, med: msys.MediumTables,
                opts: lc.TransportOptions, inst_cfgs, inst_tabs,
                rf_borders, source, source_tabs, n_total: int,
                hist_base: int = 0, lum_weight: float = 1.0,
-               phase_tabs: dict | None = None, xl_local=None):
+               phase_tabs: dict | None = None):
     """Build a jitted shard_mapped segment runner on the decomposed grid.
 
     Returns run(seed_key, history, nd_sharded, rf_sharded, accs) ->
@@ -263,54 +206,14 @@ def dd_segment(mesh: Mesh, dec: SlabDecomposition, grid, med: msys.MediumTables,
                    else dinst.KIND_SECONDARY_DIRECT)
     kind_scat = (dinst.KIND_PRIMARY_SCATTERED if opts.primary
                  else dinst.KIND_SECONDARY_SCATTERED)
-    # sweep-engine composition (round-5): each device runs the streamed XL
-    # sweep on its OWN slab subgrid instead of the fixed-bound scan march —
-    # per-device work becomes proportional to the rays' actual in-slab
-    # crossings (the march pays the transverse ny+nz bound on every device,
-    # which is why DD-march costs ~5x the replicated engine per device).
-    # The exchange protocol (all_gather ray states, all_to_all owner
-    # partials, psum returns) is unchanged.
-    use_xl = xl_local is not None
-    if use_xl:
-        from ..transport import sweep as sw_
-        from ..transport import sweepxl as xl_
-        xl_hi, xl_lo, xl_rs, xl_proto = xl_local
-        if use_rf and nrf != 1:
-            raise ValueError("dd_segment: XL sweep composition supports a "
-                             "single stored-RF bin (use the march path for "
-                             "multi-bin radiation fields)")
 
-    def per_device(lohi_row, xb_row, xh_row, xlo_row, xrs_row, seed_key,
-                   history, stabs, nd_local, rf_local, accs):
+    def per_device(lohi_row, xb_row, seed_key, history, stabs, nd_local,
+                   rf_local, accs):
         d = jax.lax.axis_index(DD_AXIS)
         grid_loc = _local_grid(dec, lohi_row[0], xb_row[0])
         nc_loc = dec.ncells_local
         B = history.shape[0]
         n_sl = dec.n_slabs
-        if use_xl:
-            tabs_loc = xl_proto._replace(
-                rho_hi=xh_row[0], rho_lo=xlo_row[0],
-                rs=xrs_row[0] if xl_rs is not None else None)
-            # local slab coordinates: x measured from the slab's lower
-            # border (the tables' static lo is (0, lo_y, lo_z))
-            shift = jnp.stack([lohi_row[0, 0], jnp.float32(0.0),
-                               jnp.float32(0.0)])
-
-            def _xl_sort(pos_all, gdir):
-                """(axis, sign, entry-slab) sort of the gathered rays:
-                axis-pure kernel blocks with compact slab windows (the
-                same contract transport/lifecycle.py applies)."""
-                grp_g = sw_.dominant_axis(tabs_loc, gdir)
-                pa_g = jnp.take_along_axis(pos_all, grp_g[:, None],
-                                           1)[:, 0]
-                da_g = jnp.take_along_axis(gdir, grp_g[:, None], 1)[:, 0]
-                lo_g = jnp.asarray(tabs_loc.lo, jnp.float32)[grp_g]
-                h_g = jnp.asarray(tabs_loc.h, jnp.float32)[grp_g]
-                t_en = jnp.clip(((pa_g - lo_g) / h_g).astype(jnp.int32),
-                                0, tabs_loc.nmax - 1)
-                skey = (grp_g * 2 + (da_g > 0)) * tabs_loc.nmax + t_en
-                prm = jnp.argsort(skey)
-                return prm, jnp.argsort(prm), da_g
 
         # detections accumulate into a ZERO tree; the psum at segment end
         # reduces only this call's delta (psumming the carried-in
@@ -343,23 +246,15 @@ def dd_segment(mesh: Mesh, dec: SlabDecomposition, grid, med: msys.MediumTables,
             """Observer-direction tau for OWN rays: psum of per-slab parts."""
             gp, gk, gs, gm = gather(pos), gather(dirn_obs), gather(sigma), \
                 gather(mask)
-            if use_xl:
-                pos_all = gp - shift[None, :]
-                prm, inv, _ = _xl_sort(pos_all, gk)
-                part = jnp.sum(
-                    xl_.sweep_dtau(tabs_loc, pos_all[prm], gk[prm],
-                                   gs.T[:, prm], gm[prm]), axis=0)[inv]
-            else:
-                _, _, _, dtau = _slab_march(grid_loc, nd_local, gp, gk, gs,
-                                            gm, S_loc)
-                part = jnp.sum(dtau, axis=0)
+            _, _, _, dtau = _slab_march(grid_loc, nd_local, gp, gk, gs, gm,
+                                        S_loc)
+            part = jnp.sum(dtau, axis=0)
             return my_block(jax.lax.psum(part, DD_AXIS))
 
         # ---- emission peel-off: REUSES the lifecycle's peel-off/detect
         # code via its tracer hook (one shared implementation, VERDICT r2
         # weak #4) ------------------------------------------------------
-        def dd_tracer(o, pos, kdir, cell, mask, lam_m=None, lya_f=False,
-                      kobs_host=None):
+        def dd_tracer(o, pos, kdir, cell, mask, lam_m=None, lya_f=False):
             return peel_tau(pos, kdir, o.sigma_ext, mask)
 
         if inst_cfgs and opts.peel_off:
@@ -380,19 +275,9 @@ def dd_segment(mesh: Mesh, dec: SlabDecomposition, grid, med: msys.MediumTables,
             # pass 1: per-slab partial taus for ALL gathered rays
             gpos, gdir = gather(pkt.pos), gather(pkt.dir)
             gsig, gmask = gather(opt.sigma_ext), gather(active | rf_mask)
-            if use_xl:
-                pos_all = gpos - shift[None, :]
-                prm, inv, da_g = _xl_sort(pos_all, gdir)
-                dtau_sub = xl_.sweep_dtau(tabs_loc, pos_all[prm],
-                                          gdir[prm], gsig.T[:, prm],
-                                          gmask[prm], want_sub=True)
-                dtau_ls = jnp.sum(dtau_sub, axis=1)   # (nmax_l, N) sorted
-                ptau = jnp.sum(dtau_ls, axis=0)[inv]
-            else:
-                p0, cells_l, ds, dtau = _slab_march(grid_loc, nd_local,
-                                                    gpos, gdir, gsig,
-                                                    gmask, S_loc)
-                ptau = jnp.sum(dtau, axis=0)                   # (N,)
+            p0, cells_l, ds, dtau = _slab_march(grid_loc, nd_local, gpos,
+                                                gdir, gsig, gmask, S_loc)
+            ptau = jnp.sum(dtau, axis=0)                       # (N,)
             # owner exchange: device d holds slab-d partials for every
             # owner's block; all_to_all turns that into the (n_slabs, B)
             # matrix of MY OWN rays — O(nB), not O(n^2 B)
@@ -417,60 +302,37 @@ def dd_segment(mesh: Mesh, dec: SlabDecomposition, grid, med: msys.MediumTables,
             glum_half = gather((pkt.lum * rf_mask) * inv_sqrt)
             grfbin = gather(rf_bin)
             gtau_int = gather(tau_int)
-            if use_xl:
-                # local ray-ordered prefix over the LOCAL grid's
-                # major-axis slabs; global tau before a local slab is the
-                # inter-device entry tau (tb_slab) plus this local prefix
-                tb_loc, _ = sw_.slab_prefix(dtau_ls, (da_g > 0)[prm])
-                if use_rf:
-                    scale_slab = (glum_half[prm][None, :]
-                                  * jnp.exp(-(tb_slab[prm][None, :]
-                                              + tb_loc))) * inv_sqrt
-                    rf_delta = xl_.sweep_deposit(
-                        tabs_loc, pos_all[prm], gdir[prm],
-                        gather(rf_mask)[prm], dtau_sub, scale_slab)
-                    rf_local = rf_local + rf_delta[0][:, None]
-                gact = gather(active)
-                s_s, ic_s, fd_s = xl_.resolve_interaction(
-                    tabs_loc, pos_all[prm], gdir[prm], gact[prm],
-                    dtau_sub, tb_loc, (gtau_int - tb_slab)[prm])
-                found_l = fd_s[inv]
-                icell_l = jnp.maximum(ic_s[inv], 0)
-                ipos_l = gpos + s_s[inv][:, None] * gdir
-                nd_at_l = nd_local[icell_l]                      # (N, H)
-                icell_g = icell_l + d * nc_loc
-            else:
-                cum_before = tb_slab[None, :] \
-                    + jnp.cumsum(dtau, axis=0) - dtau
-                if use_rf:
-                    small = dtau < 1e-4
-                    expfac = jnp.where(
-                        small, ds * (1.0 - 0.5 * dtau),
-                        -jnp.expm1(-dtau) * ds / jnp.maximum(dtau, 1e-37))
-                    contrib = (glum_half[None, :] * jnp.exp(-cum_before)) \
-                        * (expfac * inv_sqrt)
-                    flat = cells_l * nrf + grfbin[None, :]
-                    rf_local = rf_local.reshape(-1).at[
-                        flat.reshape(-1)].add(
-                        contrib.reshape(-1)).reshape(rf_local.shape)
+            cum_before = tb_slab[None, :] \
+                + jnp.cumsum(dtau, axis=0) - dtau
+            if use_rf:
+                small = dtau < 1e-4
+                expfac = jnp.where(
+                    small, ds * (1.0 - 0.5 * dtau),
+                    -jnp.expm1(-dtau) * ds / jnp.maximum(dtau, 1e-37))
+                contrib = (glum_half[None, :] * jnp.exp(-cum_before)) \
+                    * (expfac * inv_sqrt)
+                flat = cells_l * nrf + grfbin[None, :]
+                rf_local = rf_local.reshape(-1).at[
+                    flat.reshape(-1)].add(
+                    contrib.reshape(-1)).reshape(rf_local.shape)
 
-                # interaction: unique slab where global cumulative tau
-                # crosses
-                hit = (cum_before + dtau >= gtau_int[None, :]) & (dtau > 0)
-                found_l = (jnp.any(hit, axis=0)
-                           & (tb_slab < gtau_int)
-                           & (tb_slab + ptau >= gtau_int))
-                idx = jnp.argmax(hit, axis=0)
-                take = lambda a: jnp.take_along_axis(a, idx[None, :],
-                                                     axis=0)[0]
-                frac = jnp.clip((gtau_int - take(cum_before))
-                                / jnp.maximum(take(dtau), 1e-37), 0.0, 1.0)
-                s_before = jnp.cumsum(ds, axis=0) - ds
-                s_loc = take(s_before) + frac * take(ds)
-                ipos_l = p0 + s_loc[:, None] * gdir
-                icell_l = take(cells_l)
-                nd_at_l = nd_local[icell_l]                      # (N, H)
-                icell_g = icell_l + d * nc_loc
+            # interaction: unique slab where global cumulative tau
+            # crosses
+            hit = (cum_before + dtau >= gtau_int[None, :]) & (dtau > 0)
+            found_l = (jnp.any(hit, axis=0)
+                       & (tb_slab < gtau_int)
+                       & (tb_slab + ptau >= gtau_int))
+            idx = jnp.argmax(hit, axis=0)
+            take = lambda a: jnp.take_along_axis(a, idx[None, :],
+                                                 axis=0)[0]
+            frac = jnp.clip((gtau_int - take(cum_before))
+                            / jnp.maximum(take(dtau), 1e-37), 0.0, 1.0)
+            s_before = jnp.cumsum(ds, axis=0) - ds
+            s_loc = take(s_before) + frac * take(ds)
+            ipos_l = p0 + s_loc[:, None] * gdir
+            icell_l = take(cells_l)
+            nd_at_l = nd_local[icell_l]                      # (N, H)
+            icell_g = icell_l + d * nc_loc
 
             # return interaction data to the owning device (one slab finds
             # each interaction -> a masked psum is an exact exchange)
@@ -533,29 +395,17 @@ def dd_segment(mesh: Mesh, dec: SlabDecomposition, grid, med: msys.MediumTables,
     shard = jax.shard_map(
         per_device,
         mesh=mesh,
-        in_specs=(P(DD_AXIS), P(DD_AXIS), P(DD_AXIS), P(DD_AXIS),
-                  P(DD_AXIS), P(), P(DD_AXIS), P(), P(DD_AXIS),
+        in_specs=(P(DD_AXIS), P(DD_AXIS), P(), P(DD_AXIS), P(), P(DD_AXIS),
                   P(DD_AXIS), P()),
         out_specs=(P(DD_AXIS), P()),
         check_vma=False,
     )
-    if use_xl:
-        xh_arr, xlo_arr = xl_hi, xl_lo
-        xrs_arr = (xl_rs if xl_rs is not None
-                   else jnp.zeros((n_dev, 1), jnp.float32))
-    else:
-        # placeholder rows (one f32 per device) keep the shard_map
-        # signature uniform; the march path never reads them
-        xh_arr = jnp.zeros((n_dev, 1), jnp.float32)
-        xlo_arr = jnp.zeros((n_dev, 1), jnp.float32)
-        xrs_arr = jnp.zeros((n_dev, 1), jnp.float32)
-
     def run(seed_key, history, stabs, nd_sharded, rf_sharded, accs):
         # source tables flow through as traced arguments so per-iteration
         # secondary-source updates do NOT retrigger compilation (mirrors
         # Simulation._segment_runner)
-        return shard(lohi_dev, xb_dev, xh_arr, xlo_arr, xrs_arr, seed_key,
-                     history, stabs, nd_sharded, rf_sharded, accs)
+        return shard(lohi_dev, xb_dev, seed_key, history, stabs, nd_sharded,
+                     rf_sharded, accs)
 
     return jax.jit(run)
 
@@ -565,64 +415,82 @@ def make_dd_mesh(devices=None) -> Mesh:
     return Mesh(np.array(devices), (DD_AXIS,))
 
 
+def _tree_fine_shape(grid) -> tuple[int, int, int]:
+    """Finest voxel counts (2^Lx, 2^Ly, 2^Lz) of a tree grid whose leaves
+    are power-of-two fractions of the root box along each axis."""
+    box = np.asarray(grid.box_hi, np.float64) - np.asarray(grid.box_lo,
+                                                           np.float64)
+    size = (np.asarray(grid.cell_hi, np.float64)
+            - np.asarray(grid.cell_lo, np.float64))
+    lev_f = np.log2(box[None, :] / np.maximum(size, 1e-300))
+    lev = np.rint(lev_f).astype(np.int64)
+    if (np.abs(lev_f - lev) > 1e-3).any():
+        raise ValueError("tree cells are not power-of-two fractions of the "
+                         "root box")
+    return tuple(1 << int(v) for v in lev.max(axis=0))
+
+
+def _owner_map(grid, centers: np.ndarray) -> np.ndarray:
+    """Host-side voxel-centre -> cell id map (-1 = outside every cell)."""
+    from ..grids.tetra import TetraGrid
+    from ..grids.voronoi import VoronoiGrid
+
+    if isinstance(grid, VoronoiGrid):
+        from scipy.spatial import cKDTree
+        _, owner = cKDTree(np.asarray(grid.sites, np.float64)).query(centers)
+        return owner.astype(np.int32)
+    if isinstance(grid, TetraGrid) and \
+            getattr(grid, "_delaunay", None) is not None:
+        return grid._delaunay.find_simplex(centers).astype(np.int32)
+    out = np.empty(len(centers), np.int32)
+    step = 1 << 16
+    for i in range(0, len(centers), step):
+        out[i:i + step] = np.asarray(
+            grid.locate(jnp.asarray(centers[i:i + step], jnp.float32)))
+    return out
+
+
+# voxels per axis of the approximate Voronoi/tetra raster (rounded up to
+# a multiple of the slab count)
+DD_RASTER_N = 64
+
+
 def voxelize_for_dd(grid, med, n_slabs: int):
     """Generalize non-Cartesian grids to the slab decomposition through a
-    voxel raster: tree grids rasterize EXACTLY onto their fine level grid
-    (leaves are voxel unions), Voronoi/tetra approximately (same caveat as
-    transport/raster; resolution via SKIRT9_TPU_DD_RASTER_N).
+    voxel raster: tree grids rasterize EXACTLY onto their finest level
+    (leaves are voxel unions), Voronoi/tetra approximately onto a
+    DD_RASTER_N^3 grid (cell walls snap to voxel boundaries).
 
     Returns (vox_grid: UniformCartesianGrid, med_vox, cellmap) where
     cellmap (nvox,) maps voxels back to the original cells (-1 outside) for
     radiation-field aggregation; or (grid, med, None) when the grid is
     already Cartesian."""
-    import os
-
     from ..grids.amr import AMRGrid
     from ..grids.bintree import BinTreeGrid
-    from ..grids.octree import OctreeGrid
     from ..grids.cartesian import make_cartesian
-    from ..grids.voronoi import VoronoiGrid
+    from ..grids.octree import OctreeGrid
     from ..grids.tetra import TetraGrid
+    from ..grids.voronoi import VoronoiGrid
 
     if isinstance(grid, (UniformCartesianGrid, CartesianGrid)):
         return grid, med, None
     if isinstance(grid, (OctreeGrid, BinTreeGrid, AMRGrid)):
-        from ..transport import mlsweep as ml
-        meta = ml._analyze(grid)
-        nf = meta["nf"]
-        lo0, box = meta["lo0"], meta["box"]
-        owner = np.full(nf, -1, np.int32)
-        for li, sig in enumerate(meta["levels_present"]):
-            ids, cl = meta["coords"][sig]
-            lv = meta["levels"][li]
-            sx, sy, sz = lv.shift
-            for cidx, (cx, cy, cz) in zip(ids, cl):
-                owner[cx << sx:(cx + 1) << sx,
-                      cy << sy:(cy + 1) << sy,
-                      cz << sz:(cz + 1) << sz] = cidx
-        vox_grid = make_cartesian(
-            ((lo0[0], lo0[0] + box[0]), (lo0[1], lo0[1] + box[1]),
-             (lo0[2], lo0[2] + box[2])), nf)
-        owner_flat = owner.reshape(-1)
+        nf = _tree_fine_shape(grid)
     elif isinstance(grid, (VoronoiGrid, TetraGrid)):
-        from ..transport import raster as ra
-        n = int(os.environ.get("SKIRT9_TPU_DD_RASTER_N", "64"))
-        n = -(-n // n_slabs) * n_slabs
-        lo0 = np.asarray(grid.box_lo, np.float64)
-        hi0 = np.asarray(grid.box_hi, np.float64)
-        h = (hi0 - lo0) / n
-        cx = lo0[0] + (np.arange(n) + 0.5) * h[0]
-        cy = lo0[1] + (np.arange(n) + 0.5) * h[1]
-        cz = lo0[2] + (np.arange(n) + 0.5) * h[2]
-        centers = np.stack(np.meshgrid(cx, cy, cz, indexing="ij"),
-                           axis=-1).reshape(-1, 3)
-        owner_flat = ra._owner_map(grid, centers)
-        vox_grid = make_cartesian(
-            ((lo0[0], hi0[0]), (lo0[1], hi0[1]), (lo0[2], hi0[2])),
-            (n, n, n))
+        n = -(-DD_RASTER_N // n_slabs) * n_slabs
+        nf = (n, n, n)
     else:
         raise NotImplementedError(
             f"domain decomposition: unsupported grid {type(grid).__name__}")
+    lo0 = np.asarray(grid.box_lo, np.float64)
+    hi0 = np.asarray(grid.box_hi, np.float64)
+    h = (hi0 - lo0) / np.asarray(nf)
+    axes = [lo0[a] + (np.arange(nf[a]) + 0.5) * h[a] for a in range(3)]
+    centers = np.stack(np.meshgrid(*axes, indexing="ij"),
+                       axis=-1).reshape(-1, 3)
+    owner_flat = _owner_map(grid, centers)
+    vox_grid = make_cartesian(
+        ((lo0[0], hi0[0]), (lo0[1], hi0[1]), (lo0[2], hi0[2])), nf)
     nd = np.asarray(med.nd, np.float64)
     nd_vox = np.zeros((len(owner_flat), nd.shape[1]), np.float32)
     owned = owner_flat >= 0

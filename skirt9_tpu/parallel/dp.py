@@ -1,6 +1,6 @@
 """Packet data-parallelism over a device mesh.
 
-TPU-native replacement for the reference's whole parallelism stack
+Batched replacement for the reference's whole parallelism stack
 (ref: SKIRT/core/Parallel.hpp:44 `call(maxIndex, target)`,
 MultiHybridParallel.hpp:24 master-worker chunk serving over MPI,
 ProcessManager.cpp:206 `sumToAll` radiation-field allreduce):
@@ -12,7 +12,7 @@ ProcessManager.cpp:206 `sumToAll` radiation-field allreduce):
     replicated per device (exactly the reference's memory model — every
     rank holds the full grid);
   * radiation-field and instrument accumulators are reduced with `psum`
-    over ICI at the end of each segment (== the reference's per-segment
+    across the devices at the end of each segment (== the reference's per-segment
     MPI_Allreduce, MonteCarloSimulation.cpp:133).
 
 Spatial domain decomposition (sharding the *grid* with alltoall packet

@@ -1,6 +1,6 @@
 """Probes: outputs of internal simulation state.
 
-TPU-native counterpart of the reference's ProbeSystem + Probe + Form stack
+Batched counterpart of the reference's ProbeSystem + Probe + Form stack
 (ref: SKIRT/core/ProbeSystem.hpp:60, Probe.hpp:29, ProbeFormBridge.hpp:23,
 the ~55 probe classes of SURVEY.md §2.9): a probe is a function of the
 simulation state producing text/FITS artifacts through a "form" — per-cell

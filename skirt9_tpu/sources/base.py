@@ -1,6 +1,6 @@
 """Primary sources: packet launching as batched pure functions.
 
-TPU-native redesign of the reference's Source hierarchy + SourceSystem
+Batched redesign of the reference's Source hierarchy + SourceSystem
 (ref: SKIRT/core/Source.hpp:56, SourceSystem.cpp:75,101): the source system
 precomputes (host-side) the deterministic history-index -> source allocation
 with the luminosity/uniform composite bias (xi = sourceBias), exactly like
@@ -176,20 +176,10 @@ def _add_bias_tables(t: dict, bias_dist):
 
 def _sample_wavelength(tabs, keys, lum, sed, lam0, xi):
     """Composite-bias wavelength sampling shared by sources
-    (ref: NormalizedSource.cpp:73-110).
-
-    When tabs carries a "strata" borders array, sampling is STRATIFIED over
-    those wavelength intervals (lane i belongs to stratum i*R//B): a
-    TPU-native variance-reduction layout that makes every contiguous lane
-    group bin-pure so the sweep engine can deposit wavelength-binned
-    radiation fields without scatter hardware (see transport/sweep.py).
-    Expectation-exact: per-stratum packet weights carry R*Q_r."""
+    (ref: NormalizedSource.cpp:73-110)."""
     if sed is None:
         return jnp.full(lum.shape, lam0, jnp.float32), lum
     sedt = tabs["sed"]
-    if "strata" in tabs:
-        return _sample_wavelength_stratified(sedt, tabs["strata"], keys, lum,
-                                             xi, tabs.get("strata_w"))
     u = rng.uniform(keys, rng.LAUNCH_WAVELENGTH)
     lam_sed = sampling.sample_cdf_loglog(u, sedt["lam"], sedt["cdf"])
     if xi <= 0:
@@ -225,73 +215,6 @@ def _sample_wavelength(tabs, keys, lum, sed, lam0, xi):
         b = 1.0 / (lam * jnp.log(lmax / lmin))
     s = sampling.interp_loglog(lam, sedt["lam"], sedt["pdf"])
     w = s / jnp.maximum((1.0 - xi) * s + xi * b, 1e-37)
-    return lam, lum * w
-
-
-def _cdf_at(sedt, x):
-    """Forward cdf S(x) of the tabulated SED, exactly inverse-consistent
-    with sampling.sample_cdf_loglog (linear in log x within cdf bins)."""
-    lam = sedt["lam"]
-    cdf = sedt["cdf"]
-    i = sampling.locate_clip(lam, x)
-    lx0 = jnp.log(sampling.take_small(lam, i))
-    lx1 = jnp.log(sampling.take_small(lam, i + 1))
-    frac = jnp.clip((jnp.log(x) - lx0) / jnp.maximum(lx1 - lx0, 1e-30),
-                    0.0, 1.0)
-    c0 = sampling.take_small(cdf, i)
-    S = c0 + frac * (sampling.take_small(cdf, i + 1) - c0)
-    S = jnp.where(x <= lam[0], 0.0, jnp.where(x >= lam[-1], 1.0, S))
-    return S
-
-
-def _sample_wavelength_stratified(sedt, borders, keys, lum, xi,
-                                  strata_w=None):
-    """Composite-bias sampling conditioned on per-lane wavelength strata.
-
-    borders: (R+1,) stratum borders covering the SED support. Lane i is in
-    stratum (i*R)//B. Per-stratum mixture mass Q_r reweights the packets so
-    the estimator matches the unstratified one in expectation with strictly
-    smaller wavelength-allocation variance (stratified sampling)."""
-    B = lum.shape[0]
-    R = borders.shape[0] - 1
-    stratum = (jnp.arange(B, dtype=jnp.int32) * R) // B
-    lo = sampling.take_small(borders, stratum)
-    hi = sampling.take_small(borders, stratum + 1)
-    lmin = sedt["lam"][0]
-    lmax = sedt["lam"][-1]
-    logw = jnp.log(lmax / lmin)
-    lo_c = jnp.clip(lo, lmin, lmax)
-    hi_c = jnp.clip(hi, lmin, lmax)
-    # component masses within the stratum
-    Slo = _cdf_at(sedt, lo_c)
-    Shi = _cdf_at(sedt, hi_c)
-    p_sed = jnp.maximum(Shi - Slo, 0.0)
-    Blo = jnp.log(lo_c / lmin) / logw
-    Bhi = jnp.log(hi_c / lmin) / logw
-    p_bias = jnp.maximum(Bhi - Blo, 0.0)
-    Q = (1.0 - xi) * p_sed + xi * p_bias
-    xi_r = jnp.where(Q > 0, xi * p_bias / jnp.maximum(Q, 1e-37), 1.0)
-    # conditional draws from each mixture component restricted to the stratum
-    u = rng.uniform(keys, rng.LAUNCH_WAVELENGTH)
-    lam_sed = sampling.sample_cdf_loglog(Slo + u * (Shi - Slo),
-                                         sedt["lam"], sedt["cdf"])
-    u2 = rng.uniform(keys, rng.LAUNCH_CELL)
-    lam_bias = lo_c * jnp.exp(u2 * (Bhi - Blo) * logw)
-    u3 = rng.uniform(keys, rng.LAUNCH_SOURCE)
-    lam = jnp.where(u3 < xi_r, lam_bias, lam_sed)
-    # keep strictly inside the stratum against interpolation rounding
-    lam = jnp.clip(lam, lo_c, hi_c * (1.0 - 1e-7))
-    s = sampling.interp_loglog(lam, sedt["lam"], sedt["pdf"])
-    b = 1.0 / (lam * logw)
-    q = jnp.maximum((1.0 - xi) * s + xi * b, 1e-37)
-    w = jnp.where(Q > 0, (R * Q) * s / q, 0.0)
-    # per-stratum lane-count correction: the estimator assumes B/R VALID
-    # lanes per stratum, but last-batch history padding can invalidate whole
-    # strata (lanes with history >= hist_end get lum=0 in launch_batch);
-    # the host supplies (N_total/R)/n_valid_r per stratum to restore the
-    # exact expectation (see Simulation._run_segment)
-    if strata_w is not None:
-        w = w * sampling.take_small(strata_w, stratum)
     return lam, lum * w
 
 

@@ -7,7 +7,7 @@ the composite luminosity/uniform spatial bias (xi = spatialBias), each packet
 samples its wavelength from its cell's equilibrium emission spectrum cdf and
 launches isotropically from a uniform random position inside the cell.
 
-Unlike the reference (thread-local lazy per-cell spectra), the TPU design
+Unlike the reference (thread-local lazy per-cell spectra), this design
 precomputes the full (ncells, L) spectrum cdf table on device — the batched
 equivalent, trading HBM for gather throughput; cell-chunked scheduling for
 huge grids is a later optimization (SURVEY.md §7 hard part 4).
@@ -31,10 +31,6 @@ class DustSecondarySource:
 
     luminosity: float          # total dust luminosity [W]
     spatial_bias: float = 0.5
-    # wavelength support of the emission spectra — lets the Simulation build
-    # bin-pure strata for the sweep engine even though there is no single
-    # SED (per-cell spectra); see Simulation._strata_for
-    lam_range: tuple = None
     # aligned-spheroidal-grain polarized emission (SpheroidalEmissionProfile
     # below); None = isotropic unpolarized emission (the default)
     spheroidal: object = None
@@ -71,41 +67,6 @@ class DustSecondarySource:
         rows = tabs["spec_cdf"][cell]                   # (B, L)
         u_lam = rng.uniform(keys, rng.EMISSION_LAMBDA)
         borders = tabs["lam_borders"]
-        if "strata" in tabs:
-            # stratified launch for wavelength-binned sweep deposits: lane i
-            # draws from its cell's spectrum CONDITIONED on the stratum's
-            # wavelength range, importance weight R * m_cell(stratum) (the
-            # cell's spectral mass in the stratum) — unbiased, and the batch
-            # becomes bin-pure so the Pallas deposit kernels apply to
-            # secondary segments too (round-3 fix: these segments previously
-            # fell back to the scan march)
-            sb = tabs["strata"]
-            B = u_lam.shape[0]
-            R = sb.shape[0] - 1
-            stratum = (jnp.arange(B, dtype=jnp.int32) * R) // B
-            lo = jnp.clip(sb[stratum], borders[0], borders[-1])
-            hi = jnp.clip(sb[stratum + 1], borders[0], borders[-1])
-
-            def cdf_at(lam):
-                from ..ops import sampling as _smp
-                j = jnp.clip(_smp.searchsorted_right(borders, lam) - 1,
-                             0, rows.shape[1] - 1)
-                c0_ = jnp.where(j > 0, _smp.take_along_small(
-                    rows, jnp.maximum(j - 1, 0)), 0.0)
-                c1_ = _smp.take_along_small(rows, j)
-                bj = _smp.take_small(borders, j)
-                f = (lam - bj) / jnp.maximum(
-                    _smp.take_small(borders, j + 1) - bj, 1e-30)
-                return c0_ + jnp.clip(f, 0.0, 1.0) * (c1_ - c0_)
-
-            clo = cdf_at(lo)
-            chi = cdf_at(hi)
-            m = jnp.maximum(chi - clo, 0.0)
-            u_lam = clo + u_lam * m
-            w = R * m
-            if "strata_w" in tabs:
-                w = w * tabs["strata_w"][stratum]
-            lum = lum * w
         from ..ops import sampling as _smp
         li = jnp.sum((rows < u_lam[:, None]).astype(jnp.int32), axis=1)
         li = jnp.clip(li, 0, rows.shape[1] - 1)
@@ -117,9 +78,6 @@ class DustSecondarySource:
         b0 = _smp.take_small(borders, li)
         b1 = _smp.take_small(borders, li + 1)
         lam = b0 + frac * (b1 - b0)
-        if "strata" in tabs:
-            # keep strictly inside the stratum against rounding
-            lam = jnp.clip(lam, lo, hi * (1.0 - 1e-7))
 
         # --- uniform random position inside the cell
         # (ref: SpatialGrid::randomPositionInCell)
@@ -186,8 +144,6 @@ def prepare(grid, L_cell, eps, ems_borders: np.ndarray,
         "cell_hi": jnp.asarray(hi, jnp.float32),
     }
     return DustSecondarySource(luminosity=total, spatial_bias=spatial_bias,
-                               lam_range=(float(ems_borders[0]),
-                                          float(ems_borders[-1])),
                                _tables=tables)
 
 
@@ -233,8 +189,6 @@ def prepare_device(grid, L_cell, eps, ems_borders: np.ndarray,
         "cell_hi": bounds_dev[1],
     }
     return DustSecondarySource(luminosity=total, spatial_bias=spatial_bias,
-                               lam_range=(float(ems_borders[0]),
-                                          float(ems_borders[-1])),
                                _tables=tables)
 
 

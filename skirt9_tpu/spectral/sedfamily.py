@@ -1,4 +1,4 @@
-"""SED families: parameterized SED template grids with TPU-friendly sampling.
+"""SED families: parameterized SED template grids with batched sampling.
 
 Counterpart of the reference's SEDFamily hierarchy (ref:
 SKIRT/core/SEDFamily.hpp:20, FileSSPSEDFamily.hpp, FileIndexedSEDFamily.hpp,
@@ -7,7 +7,7 @@ mass, metallicity, age) to a specific luminosity spectrum L_lambda; imported
 sources use it to allocate luminosity between entities and to sample photon
 packet wavelengths per entity.
 
-TPU-first design: instead of building a cdf per entity on demand (the
+Batched design: instead of building a cdf per entity on demand (the
 reference's SEDFamily::cdf per imported entity), the family keeps ONE dense
 cdf table per parameter-grid node, and an entity's spectrum is treated as
 the exact multilinear mixture of its 2^P surrounding nodes. Sampling a
@@ -298,77 +298,3 @@ class FamilyTables:
         lo = self.lam[k]
         hi = self.lam[k + 1]
         return lo + f * (hi - lo)
-
-    @property
-    def lam_range(self) -> tuple:
-        """Clip-range support (for Simulation._strata_for)."""
-        return (float(self.lam_np[0]), float(self.lam_np[-1]))
-
-    def _node_cdf_at(self, rows: jax.Array, x: jax.Array) -> jax.Array:
-        """Per-lane node cdf value at wavelength x (piecewise linear in
-        lambda, exactly inverse-consistent with _invert_node_cdf)."""
-        from ..ops import sampling
-        lamt = self.lam
-        k = jnp.clip(sampling.searchsorted_right(lamt, x) - 1,
-                     0, lamt.shape[0] - 2)
-        c1 = jnp.take_along_axis(rows, k[:, None], axis=1)[:, 0]
-        c0 = jnp.where(k > 0,
-                       jnp.take_along_axis(rows,
-                                           jnp.maximum(k - 1, 0)[:, None],
-                                           axis=1)[:, 0], 0.0)
-        lo = sampling.take_small(lamt, k)
-        hi = sampling.take_small(lamt, k + 1)
-        f = jnp.clip((x - lo) / jnp.maximum(hi - lo, 1e-30), 0.0, 1.0)
-        S = c0 + f * (c1 - c0)
-        return jnp.where(x <= lamt[0], 0.0,
-                         jnp.where(x >= lamt[-1], 1.0, S))
-
-    def _invert_node_cdf(self, rows: jax.Array, u: jax.Array) -> jax.Array:
-        k = jnp.sum((rows < u[:, None]).astype(jnp.int32), axis=1)
-        k = jnp.clip(k, 0, rows.shape[1] - 1)
-        c0 = jnp.where(k > 0,
-                       jnp.take_along_axis(rows,
-                                           jnp.maximum(k - 1, 0)[:, None],
-                                           axis=1)[:, 0], 0.0)
-        c1 = jnp.take_along_axis(rows, k[:, None], axis=1)[:, 0]
-        f = jnp.where(c1 > c0, (u - c0) / jnp.maximum(c1 - c0, 1e-30), 0.5)
-        lo = self.lam[k]
-        hi = self.lam[k + 1]
-        return lo + f * (hi - lo)
-
-    def sample_wavelength_stratified(self, keys: jax.Array,
-                                     entity: jax.Array,
-                                     corner_idx: jax.Array,
-                                     corner_cdf: jax.Array,
-                                     borders: jax.Array,
-                                     strata_w: jax.Array | None = None):
-        """Stratified family sampling: lane i draws its wavelength inside
-        stratum (i*R)//B of `borders` and carries the weight R*Q (Q = the
-        node's probability mass in the stratum), so contiguous lane groups
-        are bin-pure for the sweep engine while the estimator stays
-        expectation-exact (mirrors sources.base._sample_wavelength_stratified
-        for the single-SED sources). Returns (lam, weight)."""
-        from ..ops import sampling
-        B = entity.shape[0]
-        R = borders.shape[0] - 1
-        stratum = (jnp.arange(B, dtype=jnp.int32) * R) // B
-        lo = sampling.take_small(borders, stratum)
-        hi = sampling.take_small(borders, stratum + 1)
-        # corner-node selection: unchanged distribution
-        u_c = rng.uniform(keys, rng.LAUNCH_FAMILY_CORNER)
-        ccdf = corner_cdf[entity]
-        c = jnp.sum((ccdf < u_c[:, None]).astype(jnp.int32), axis=1)
-        c = jnp.clip(c, 0, ccdf.shape[1] - 1)
-        node = jnp.take_along_axis(corner_idx[entity], c[:, None],
-                                   axis=1)[:, 0]
-        rows = self.cdf[node]                          # (B, T-1)
-        S_lo = self._node_cdf_at(rows, lo)
-        S_hi = self._node_cdf_at(rows, hi)
-        Q = jnp.maximum(S_hi - S_lo, 0.0)
-        u = rng.uniform(keys, rng.LAUNCH_WAVELENGTH)
-        lam = self._invert_node_cdf(rows, S_lo + u * Q)
-        lam = jnp.clip(lam, lo, hi * (1.0 - 1e-7))
-        w = jnp.where(Q > 0, R * Q, 0.0)
-        if strata_w is not None:
-            w = w * sampling.take_small(strata_w, stratum)
-        return lam, w

@@ -1,6 +1,6 @@
 """WavelengthDistribution family: configurable wavelength-bias sampling.
 
-TPU-native counterpart of the reference's WavelengthDistribution hierarchy
+Batched counterpart of the reference's WavelengthDistribution hierarchy
 (ref: SKIRT/core/WavelengthDistribution.hpp; LinWavelengthDistribution.cpp:21,
 LogWavelengthDistribution, FileWavelengthDistribution,
 ListWavelengthDistribution, DiscreteWavelengthDistribution.cpp:38-55).

@@ -1,6 +1,6 @@
 """The photon-packet life cycle as a batched, jit-compiled state machine.
 
-This is the TPU-native re-design of the reference's hot path
+This is the batched re-design of the reference's hot path
 (ref: SKIRT/core/MonteCarloSimulation.cpp:538 `performLifeCycle`,
 :696 `simulateForcedPropagation`, :784 `peelOffScattering`,
 :638 `storeRadiationField`): instead of one C++ object walked through a
@@ -110,21 +110,6 @@ class TransportOptions:
     # sources at parsec scales, beyond f32 max). Choose
     # rf_scale ~ (L_total/num_packets) * grid diagonal.
     rf_scale: float = 1.0
-    # panchromatic sweep support: when > 0, the batch is laid out in
-    # rf_strata contiguous bin-pure lane groups (stratified launch, see
-    # sources.base._sample_wavelength_stratified) and the sweep engine
-    # deposits wavelength-binned radiation fields; rf_bin_map maps each
-    # group to its RF bin (-1 = outside the RF grid, deposits dropped)
-    rf_strata: int = 0
-    rf_bin_map: tuple = ()
-    # monochromatic source inside a multi-bin RF simulation: all lanes
-    # deposit into this single static bin (-1 = not monochromatic)
-    rf_mono_bin: int = -1
-    # allow the rasterized sweep for unstructured grids (transport/raster):
-    # exact physics per-voxel, cell interfaces quantized to voxel boundaries
-    # (~1-2% per-chord tau error at the default budget, under MC noise).
-    # False forces the exact-walk scan march (ski: rasterFallback)
-    raster_fallback: bool = True
 
 
 # ----------------------------------------------------------------- ray marches
@@ -132,10 +117,9 @@ class TransportOptions:
 def march_geometry(grid, pos0, dirn, cell0, max_steps: int, mask):
     """Pure geometric march: per-step (cell, ds) tables, (S,B) each.
 
-    Contains NO table gathers: a gather inside lax.scan costs ~25x a
-    standalone gather on this TPU backend (measured 973 us vs 42 us for
-    131k lanes), so all opacity work happens densely on the recorded step
-    tables afterwards (opacity_on_path).
+    Contains NO table gathers: all opacity work happens densely on the
+    recorded step tables afterwards (opacity_on_path), one gather over the
+    whole (S,B) table instead of one per scan step.
     """
 
     def body(carry, _):
@@ -170,7 +154,8 @@ def opacity_on_path(med: msys.MediumTables, opt: msys.Optics,
     if lam is None:
         sig = opt.sigma_sca if scattering else opt.sigma_ext   # (B,H)
         nd = med.nd[cells]                                     # (S,B,H)
-        return jnp.einsum("sbh,bh->sb", nd, sig) * ds
+        return jnp.einsum("sbh,bh->sb", nd, sig,
+                          precision=jax.lax.Precision.HIGHEST) * ds
     v = med.bulk_v[cells]
     lam_c = lam[None, :] / (1.0 - jnp.sum(dirn[None, :, :] * v, axis=-1)
                             * _INV_C)
@@ -206,8 +191,8 @@ def march_record(grid, med: msys.MediumTables, opt: msys.Optics,
     recording in SpatialGridPath + the later binary search / RF walk): a
     single march materializes the step table, and everything downstream
     (total optical depth, forced-scattering interaction point, radiation-
-    field deposits) becomes dense vectorized math on (S,B) arrays — the
-    TPU-friendly shape (VPU work + one scatter) instead of two more marches.
+    field deposits) becomes dense vectorized math on (S,B) arrays plus one
+    scatter, instead of two more marches.
     """
 
     cells, ds = march_geometry(grid, pos0, dirn, cell0, max_steps, mask)
@@ -413,13 +398,9 @@ def peel_off(grid, med, opt, inst_cfgs, inst_tabs, accs, lam, pos, cell,
         lam_for_march = lam_march
         if march_uses_lam_fn and lam_fn is not None:
             lam_for_march = lam_fn(kobs)
-        kobs_host = None
-        cfg0 = inst_cfgs[group[0]]
-        if hasattr(cfg0, "frame_axes"):
-            kobs_host = cfg0.frame_axes()[0]
         if tracer is not None:
             tau_obs = tracer(opt, pos, kdir, cell, active, lam_for_march,
-                             lya, kobs_host=kobs_host)
+                             lya)
         else:
             tau_obs = trace_tau(grid, med, opt, pos, kdir, cell, max_steps,
                                 active, lam=lam_for_march, lya=lya)
@@ -448,7 +429,7 @@ def peel_off(grid, med, opt, inst_cfgs, inst_tabs, accs, lam, pos, cell,
 def peel_off_local(grid, med, opt, cfgs, tabs, accs, lam, pos, cell,
                    contrib_per_sr: Callable[[jax.Array], jax.Array],
                    kind: int, max_steps: int, active: jax.Array,
-                   lam_march=None, tracer=None):
+                   lam_march=None):
     """Peel-off toward interior (all-sky) observers: per-packet observer
     directions and 1/d^2 local calibration (ref: AllSkyInstrument detection
     + FluxRecorder local-instrument distance factor)."""
@@ -456,11 +437,8 @@ def peel_off_local(grid, med, opt, cfgs, tabs, accs, lam, pos, cell,
     for i, (cfg, tab) in enumerate(zip(cfgs, tabs)):
         k, dist = asky.observer_directions(tab, pos)
         per_sr = contrib_per_sr(k)
-        if tracer is not None:
-            tau_obs = tracer(opt, pos, k, cell, active, lam_march, False)
-        else:
-            tau_obs = trace_tau(grid, med, opt, pos, k, cell, max_steps,
-                                active, lam=lam_march)
+        tau_obs = trace_tau(grid, med, opt, pos, k, cell, max_steps,
+                            active, lam=lam_march)
         contrib = per_sr * jnp.exp(-tau_obs) / jnp.maximum(dist * dist, 1e-30)
         if getattr(cfg, "is_perspective", False):
             from ..instruments import perspective as persp
@@ -480,7 +458,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                emission_phase: Callable[[jax.Array], jax.Array] | None = None,
                emission_polarization=None,
                mueller: "stk.MuellerTables | None" = None,
-               sweep_tabs=None, emit_mask: jax.Array | None = None,
+               emit_mask: jax.Array | None = None,
                return_state: bool = False, xray_tabs: dict | None = None,
                phase_tabs: dict | None = None):
     """Run the complete life cycle of one launched packet batch.
@@ -498,165 +476,10 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
     launched lanes emit — surviving lanes already did in a prior call.
     """
     opt = msys.optics_at(med, pkt.lam)
-    # slab-sweep fast path (Pallas kernels, see transport/sweep.py and, for
-    # tree grids, transport/mlsweep.py): active when the grid/medium
-    # support it and no per-cell wavelength shifts are in play (the
-    # per-lane cross sections must be constant along the path).
-    # Wavelength-binned radiation fields need the batch in bin-pure lane
-    # groups: rf_strata > 0 (stratified launch) or rf_mono_bin >= 0 (single
-    # static bin for a monochromatic source).
-    from . import mlsweep as _ml
-    from . import sweep as _sw
-    from . import sweepxl as _xl
-    is_ml = isinstance(sweep_tabs, _ml.MLTables)
-    is_xl = isinstance(sweep_tabs, _xl.XLTables)
-    _eng = _ml if is_ml else (_xl if is_xl else _sw)
-    B_lanes = int(pkt.lam.shape[0])
-    if rf is not None and opts.store_rf:
-        rf_nbins = rf[0].shape[0] if is_ml else rf.shape[1]
-    else:
-        rf_nbins = 0
-    n_groups = 1
-    if rf_nbins > 1:
-        if opts.rf_strata > 0:
-            n_groups = opts.rf_strata
-        elif opts.rf_mono_bin < 0:
-            rf_nbins = -1  # multi-bin RF without a bin-pure layout: no sweep
     # wavelength-changing scattering (Compton/Lya/X-ray): per-event optics
     # must re-derive from the CURRENT packet wavelengths (round-3 fix: the
     # once-per-segment optics were stale after the first shift)
     lam_changing = opts.compton or opts.lya or opts.xray
-    # Kinematics (per-cell Doppler shifts) is compatible with the sweep
-    # when every component's cross sections are WAVELENGTH-INDEPENDENT over
-    # the table (e.g. Thomson electrons): the perceived-wavelength opacity
-    # then equals the launch-wavelength opacity exactly, so the constant
-    # per-lane sigma the kernels assume is exact (ref: MediumSystem.cpp:860
-    # perceived-wavelength opacities; the polarized+kinematic benchmark is
-    # precisely this case). Multi-bin stored radiation fields still need
-    # the scan march (static stratum->bin maps can't re-bin per cell).
-    kin_ok = True
-    if opts.kinematics:
-        se = np.asarray(med.sigma_ext)
-        ss = np.asarray(med.sigma_sca)
-        sig_const = bool(np.all(se == se[:, :1]) and np.all(ss == ss[:, :1]))
-        kin_ok = sig_const and rf_nbins <= 1
-    # Wavelength-changing physics (Compton/Lya/X-ray) rides the sweep when
-    # the per-lane cross sections stay constant ALONG each path (the
-    # kernels' contract): per-event re-derived sigma handles the
-    # between-event shifts, and the RF path must not need per-cell
-    # re-binning — i.e. at most one stored RF bin (the static stratum->bin
-    # map of multi-bin deposits can't re-bin after a shift; round-3
-    # advisory). Lya additionally requires a static medium with a uniform
-    # gas temperature: the resonant Voigt opacity then factors into one
-    # per-lane cross section exactly (bench6's regime; ref:
-    # LyaNeutralHydrogenGasMix opacityExt per-cell T dependence).
-    lya_T0 = 0.0
-    lya_sweep_ok = False
-    if opts.lya:
-        nd_h = np.asarray(med.nd)
-        t_h = np.asarray(med.temperature)
-        v_h = np.asarray(med.bulk_v)
-        occ = nd_h.sum(axis=-1) > 0
-        if occ.any() and nd_h.shape[1] == 1 and np.all(v_h == 0.0):
-            t_occ = t_h[occ]
-            if t_occ.min() > 0 and \
-                    (t_occ.max() - t_occ.min()) <= 1e-6 * t_occ.max():
-                lya_sweep_ok = True
-                lya_T0 = float(t_occ[0])
-    lam_sweep_ok = (not lam_changing) or (
-        rf_nbins <= 1 and n_groups == 1
-        and (not opts.lya or lya_sweep_ok))
-    use_sweep = (sweep_tabs is not None
-                 and not opts.explicit_absorption
-                 and (not opts.kinematics or kin_ok)
-                 and lam_sweep_ok
-                 and B_lanes % max(128 * n_groups, 128) == 0
-                 # the XL streamed engine covers lanes in 8-row blocks:
-                 # NB = B/128 must divide into them exactly (sweepxl
-                 # _lane_block raises otherwise)
-                 and (not is_xl or (B_lanes // 128) % 8 == 0)
-                 and rf_nbins >= 0)
-    if sweep_tabs is not None and not use_sweep and not is_ml:
-        # engine fallback is a material performance event — say so once per
-        # compilation (this body runs at trace time) instead of silently
-        # dropping to the ~7 ns/element scan march
-        from ..utils.log import default as _log
-        why = []
-        if opts.explicit_absorption:
-            why.append("explicitAbsorption")
-        if opts.kinematics and not kin_ok:
-            why.append("kinematics with wavelength-dependent optics"
-                       if rf_nbins <= 1 else "kinematics with multi-bin RF")
-        if opts.lya:
-            why.append("Lya")
-        if opts.compton:
-            why.append("Compton")
-        if opts.xray:
-            why.append("X-ray")
-        if B_lanes % max(128 * n_groups, 128) != 0:
-            why.append(f"batch {B_lanes} not divisible by "
-                       f"{128 * max(n_groups, 1)}")
-        if is_xl and (B_lanes // 128) % 8 != 0:
-            why.append(f"batch {B_lanes} not divisible into the XL "
-                       "engine's 1024-lane blocks")
-        if rf_nbins < 0:
-            why.append("multi-bin RF without bin-pure lane layout")
-        _log().warning("transport: falling back to the scan-march engine "
-                       f"({', '.join(why) or 'unknown reason'})")
-    if is_ml and not use_sweep:
-        raise ValueError("multi-level sweep grid cannot fall back to the "
-                         "scan march with plane-space RF accumulators")
-    if use_sweep:
-        def sig_lanes_of(lam):
-            """Per-lane (H, B) cross sections at the given wavelengths,
-            including the Lya resonant Voigt term at the (uniform) gas
-            temperature when in Lya mode (the marker mix's static tables
-            are zero; ref: LyaNeutralHydrogenGasMix opacity)."""
-            sig = msys.optics_at(med, lam).sigma_ext.T
-            if opts.lya:
-                sig = sig.at[0].add(lyo.cross_section(lam, lya_T0))
-            return sig
-
-        sigma_lanes = (sig_lanes_of(pkt.lam) if opts.lya
-                       else opt.sigma_ext.T)  # (H, B)
-
-        def tracer(o, pos, kdir, cell, mask, lam_m=None, lya_f=False,
-                   kobs_host=None):
-            # per-observer wavelengths (fluorescence lines, Doppler, Lya
-            # redistribution) need extinction at the DETECTION wavelength,
-            # not the packet's
-            sig = (sig_lanes_of(lam_m) if lam_m is not None
-                   else (sigma_lanes if opts.lya else o.sigma_ext.T))
-            hint = None
-            if kobs_host is not None:
-                # every lane marches toward the SAME observer: the slab
-                # layout is statically known -> 3x cheaper select loop
-                hk = np.asarray(kobs_host, np.float64)
-                hint = int(np.argmax(np.abs(hk)
-                                     / np.asarray(sweep_tabs.h)))
-            if is_xl and hint is not None:
-                # entry-slab sort: axis-pure blocks with compact slab
-                # windows (the peel ray runs one-sided from the packet
-                # position to the boundary); only the summed taus come
-                # back, so the inverse gather is (B,)-cheap
-                t_e = jnp.clip(
-                    ((pos[:, hint] - sweep_tabs.lo[hint])
-                     / sweep_tabs.h[hint]).astype(jnp.int32),
-                    0, sweep_tabs.nmax - 1)
-                prm = jnp.argsort(t_e)
-                tau_p = jnp.sum(
-                    _eng.sweep_dtau(sweep_tabs, pos[prm], kdir[prm],
-                                    sig[:, prm], mask[prm],
-                                    axis_hint=hint), axis=0)
-                return tau_p[jnp.argsort(prm)]
-            return jnp.sum(_eng.sweep_dtau(sweep_tabs, pos, kdir,
-                                           sig, mask, axis_hint=hint),
-                           axis=0)
-    else:
-        def tracer(o, pos, kdir, cell, mask, lam_m=None, lya_f=False,
-                   kobs_host=None):
-            return trace_tau(grid, med, o, pos, kdir, cell, opts.max_steps,
-                             mask, lam=lam_m, lya=lya_f)
     # split instruments into distant observers (shared-direction peel-off)
     # and local all-sky observers (per-packet directions)
     dist_ids = tuple(i for i, c_ in enumerate(inst_cfgs)
@@ -759,8 +582,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                            pkt.lam, pkt.pos, pkt.cell, per_sr, kind_direct,
                            opts.max_steps, emit, transparent_too=True,
                            lam_march=lam_march0, lam_fn=emis_lam_fn,
-                           lya=opts.lya,
-                           tracer=tracer, dist=pkt.dist,
+                           lya=opts.lya, dist=pkt.dist,
                            stokes_fn=emis_stokes_fn)
             accs = _stitch(accs, dist_ids, sub)
         if local_ids:
@@ -770,7 +592,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                                  [accs[i] for i in local_ids],
                                  pkt.lam, pkt.pos, pkt.cell, per_sr,
                                  kind_direct, opts.max_steps, emit,
-                                 lam_march=lam_march0, tracer=tracer)
+                                 lam_march=lam_march0)
             accs = _stitch(accs, local_ids, sub)
 
     # ---- scattering-event loop
@@ -801,191 +623,34 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
         # the interaction point all derive from the step table
         rf_mask = (active & ev_rf_in_range if use_rf
                    else jnp.zeros_like(active))
-        if use_sweep:
-            sig_ev = sig_lanes_of(pkt.lam) if lam_changing else sigma_lanes
-            dtau_sub = enc_sub = None
-            xl_perm = xl_inv = p_pos = p_dir = p_act = None
-            if is_xl:
-                # the XL engine records per-substep taus so the deposit
-                # pass needs no density access and the interaction point
-                # resolves in XLA (transport/sweepxl.py). Lanes are sorted
-                # by dominant axis (stable, within bin-pure groups) so the
-                # kernel's lane blocks are axis-pure and each runs ONE
-                # axis pass instead of three; everything downstream of the
-                # kernels stays in permuted lane order, and only the small
-                # per-lane results are gathered back.
-                grp = _sw.dominant_axis(sweep_tabs, pkt.dir)
-                # sort key (axis, major sign, entry slab): sign+entry
-                # clustering shrinks each block's slab window so the
-                # kernel's dynamic loop bounds skip the untouched half of
-                # the major axis (a forced-scattering path always runs to
-                # the grid boundary, so the window is one-sided per lane)
-                nmax_t = sweep_tabs.nmax
-                pa_s = jnp.take_along_axis(pkt.pos, grp[:, None], 1)[:, 0]
-                da_s = jnp.take_along_axis(pkt.dir, grp[:, None], 1)[:, 0]
-                lo_s = jnp.asarray(sweep_tabs.lo, jnp.float32)[grp]
-                h_s = jnp.asarray(sweep_tabs.h, jnp.float32)[grp]
-                t_ent = jnp.clip(((pa_s - lo_s) / h_s).astype(jnp.int32),
-                                 0, nmax_t - 1)
-                skey = (grp * 2 + (da_s > 0)) * nmax_t + t_ent
-                if n_groups > 1:
-                    gsz = B_lanes // n_groups
-                    skey = (jnp.arange(B_lanes, dtype=jnp.int32) // gsz) \
-                        * 6 * nmax_t + skey
-                xl_perm = jnp.argsort(skey)
-                xl_inv = jnp.argsort(xl_perm)
-                p_pos = pkt.pos[xl_perm]
-                p_dir = pkt.dir[xl_perm]
-                p_act = active[xl_perm]
-                dtau_sub = _xl.sweep_dtau(sweep_tabs, p_pos, p_dir,
-                                          sig_ev[:, xl_perm], p_act,
-                                          want_sub=True)
-                dtau_slab = jnp.sum(dtau_sub, axis=1)
-                grp_p = grp[xl_perm]
-                dmaj_p = jnp.take_along_axis(p_dir, grp_p[:, None],
-                                             1)[:, 0]
-                tb_slab, tau_path = _sw.slab_prefix(dtau_slab, dmaj_p > 0)
-                tau_path = tau_path[xl_inv]
-            elif is_ml:
-                # pass 1 records per-substep taus + deposit encodings so
-                # the deposit pass skips the level-stack select loop
-                dtau_sub, enc_sub = _ml.sweep_dtau(
-                    sweep_tabs, pkt.pos, pkt.dir, sig_ev, active,
-                    want_sub=True)
-                dtau_slab = jnp.sum(dtau_sub, axis=1)
-            else:
-                dtau_slab = _eng.sweep_dtau(sweep_tabs, pkt.pos, pkt.dir,
-                                            sig_ev, active)
-            if not is_xl:
-                grp = _sw.dominant_axis(sweep_tabs, pkt.dir)
-                dmaj = jnp.take_along_axis(pkt.dir, grp[:, None], 1)[:, 0]
-                tb_slab, tau_path = _sw.slab_prefix(dtau_slab, dmaj > 0)
+        rec = march_record(grid, med, opt_ev, pkt.pos, pkt.dir,
+                           pkt.cell, opts.max_steps, active | rf_mask,
+                           record_sca=opts.explicit_absorption,
+                           lam=pkt.lam if (opts.kinematics or opts.lya)
+                           else None, lya=opts.lya)
+        if opts.explicit_absorption:
+            # interaction sampled on the SCATTERING optical depth;
+            # absorption applied as an explicit weight e^-tau_abs at the
+            # interaction (ref: Configuration explicitAbsorption +
+            # simulateForced/NonForcedPropagation variants)
+            cells, ds, dtau_ext, dtau_s = rec
         else:
-            rec = march_record(grid, med, opt_ev, pkt.pos, pkt.dir,
-                               pkt.cell, opts.max_steps, active | rf_mask,
-                               record_sca=opts.explicit_absorption,
-                               lam=pkt.lam if (opts.kinematics or opts.lya)
-                               else None, lya=opts.lya)
-            if opts.explicit_absorption:
-                # interaction sampled on the SCATTERING optical depth;
-                # absorption applied as an explicit weight e^-tau_abs at the
-                # interaction (ref: Configuration explicitAbsorption +
-                # simulateForced/NonForcedPropagation variants)
-                cells, ds, dtau_ext, dtau_s = rec
-            else:
-                cells, ds, dtau_ext = rec
-                dtau_s = dtau_ext
-            tau_before_ext = jnp.cumsum(dtau_ext, axis=0) - dtau_ext
-            tau_before = jnp.cumsum(dtau_s, axis=0) - dtau_s
-            tau_path = tau_before[-1] + dtau_s[-1]
+            cells, ds, dtau_ext = rec
+            dtau_s = dtau_ext
+        tau_before_ext = jnp.cumsum(dtau_ext, axis=0) - dtau_ext
+        tau_before = jnp.cumsum(dtau_s, axis=0) - dtau_s
+        tau_path = tau_before[-1] + dtau_s[-1]
 
         tau_int, w_bias, tau_ok = sample_interaction_tau(opts, keys,
                                                          tau_path)
         active_int = active & tau_ok
 
-        if use_sweep:
-            # pass 2: deposits + exact interaction resolution in one kernel
-            inv_sqrt = 1.0 / float(np.sqrt(opts.rf_scale))
-            lum_half = (pkt.lum * rf_mask) * inv_sqrt
-            if is_ml:
-                if use_rf:
-                    rf_delta, s_int, icell, found = _ml.sweep_deposit(
-                        sweep_tabs, pkt.pos, pkt.dir, active,
-                        dtau_sub, enc_sub, lum_half, tau_int, tb_slab,
-                        inv_sqrt, n_groups=n_groups)
-                else:
-                    # no stored RF (e.g. the final peel-off secondary
-                    # segment): skip the deposit kernel — the interaction
-                    # resolves in XLA from the per-substep record, and the
-                    # cell comes from the fine leaf map
-                    rf_delta = None
-                    s_int, _icv, found = _ml.resolve_interaction(
-                        sweep_tabs, pkt.pos, pkt.dir, active_int,
-                        dtau_sub, tb_slab, tau_int)
-                    ip_tmp = pkt.pos + s_int[:, None] * pkt.dir
-                    icell = jnp.where(found,
-                                      _ml.locate_cells(sweep_tabs, ip_tmp),
-                                      -1)
-            elif is_xl:
-                # all inputs in the axis-sorted lane order of pass 1
-                # (tb_slab and dtau_sub are permuted); only the small
-                # per-lane results gather back to launch order
-                if use_rf:
-                    scale_slab = (lum_half[xl_perm][None, :]
-                                  * jnp.exp(-tb_slab)) * inv_sqrt
-                    rf_delta = _xl.sweep_deposit(
-                        sweep_tabs, p_pos, p_dir, p_act, dtau_sub,
-                        scale_slab, n_groups=n_groups)
-                else:
-                    rf_delta = None   # no stored RF: skip the deposit pass
-                s_int_p, icell_p, found_p = _xl.resolve_interaction(
-                    sweep_tabs, p_pos, p_dir, active_int[xl_perm],
-                    dtau_sub, tb_slab, tau_int[xl_perm])
-                s_int = s_int_p[xl_inv]
-                icell = icell_p[xl_inv]
-                found = found_p[xl_inv]
-                if sweep_tabs.cellmap is not None:
-                    # tree-raster mode: the tables live on the fine voxel
-                    # grid; downstream per-cell state (albedo, kinematics,
-                    # packet cell) indexes the ORIGINAL leaf cells
-                    icell = jnp.where(
-                        found,
-                        sweep_tabs.cellmap[jnp.maximum(icell, 0)], -1)
-            else:
-                scale_slab = (lum_half[None, :] * jnp.exp(-tb_slab)) \
-                    * inv_sqrt
-                rel_slab = tau_int[None, :] - tb_slab
-                rf_delta, s_int, icell, found = _sw.sweep_deposit(
-                    sweep_tabs, pkt.pos, pkt.dir, sig_ev, active,
-                    scale_slab, rel_slab, n_groups=n_groups)
-            if use_rf and is_ml:
-                # plane-space accumulators: per-level (nbins, nvox) updated
-                # with the same group->bin mapping; aggregation to cells
-                # happens once per segment (Simulation._rf_finalize)
-                M = None
-                if n_groups > 1 and rf_nbins > 1:
-                    M = np.zeros((len(opts.rf_bin_map), rf_nbins),
-                                 np.float32)
-                    for gi, bi in enumerate(opts.rf_bin_map):
-                        if bi >= 0:
-                            M[gi, bi] = 1.0
-                    M = jnp.asarray(M)
-                new_rf = []
-                for rf_l, d_l in zip(rf, rf_delta):
-                    if rf_nbins == 1:
-                        new_rf.append(rf_l + d_l)
-                    elif n_groups == 1:
-                        new_rf.append(rf_l.at[opts.rf_mono_bin].add(d_l[0]))
-                    else:
-                        new_rf.append(rf_l + M.T @ d_l)
-                rf = tuple(new_rf)
-            elif use_rf:
-                if rf.shape[1] == 1:
-                    rf = rf + rf_delta[0][:, None]
-                elif n_groups == 1:
-                    # monochromatic source in a multi-bin RF table
-                    rf = rf.at[:, opts.rf_mono_bin].add(rf_delta[0])
-                elif tuple(opts.rf_bin_map) == tuple(range(rf.shape[1])):
-                    rf = rf + rf_delta.T
-                else:
-                    # static group->bin aggregation as one small matmul
-                    # (several strata may share an RF bin after splitting)
-                    M = np.zeros((len(opts.rf_bin_map), rf.shape[1]),
-                                 np.float32)
-                    for gi, bi in enumerate(opts.rf_bin_map):
-                        if bi >= 0:
-                            M[gi, bi] = 1.0
-                    rf = rf + rf_delta.T @ jnp.asarray(M)
-            ipos = pkt.pos + s_int[:, None] * pkt.dir
-            found = found & active_int
-            idx = frac = None
-        else:
-            if use_rf:
-                rf = deposit_rf(rf, cells, ds, dtau_ext, tau_before_ext,
-                                pkt.lum, ev_rf_bin, rf_mask, opts.rf_scale)
-            ipos, icell, found, idx, frac = interaction_point(
-                pkt.pos, pkt.dir, cells, ds, dtau_s, tau_before, tau_int,
-                active_int)
+        if use_rf:
+            rf = deposit_rf(rf, cells, ds, dtau_ext, tau_before_ext,
+                            pkt.lum, ev_rf_bin, rf_mask, opts.rf_scale)
+        ipos, icell, found, idx, frac = interaction_point(
+            pkt.pos, pkt.dir, cells, ds, dtau_s, tau_before, tau_int,
+            active_int)
 
         active_int = active_int & found
         if opts.kinematics:
@@ -1117,7 +782,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                                    kind_scat, opts.max_steps, active_int,
                                    lam_fn=lya_lam_fn,
                                    march_uses_lam_fn=True, lya=True,
-                                   tracer=tracer, dist=pkt.dist)
+                                   dist=pkt.dist)
                     accs = _stitch(accs, dist_ids, sub)
             pkt = pkt._replace(
                 lam=jnp.where(active_int, lam_new_lya, pkt.lam))
@@ -1144,7 +809,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                                pkt.lam, pkt.pos, pkt.cell, kn_per_sr,
                                kind_scat, opts.max_steps, active_int,
                                lam_fn=kn_lam_fn, march_uses_lam_fn=True,
-                               tracer=tracer, dist=pkt.dist)
+                               dist=pkt.dist)
                 accs = _stitch(accs, dist_ids, sub)
             mu_s = co.sample_costheta(rng.uniform(keys, _TAG_SCATTER_CT), x_c)
             phi_c = 2.0 * jnp.pi * rng.uniform(keys, _TAG_SCATTER_PHI)
@@ -1195,7 +860,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                                pkt.lam, pkt.pos, pkt.cell, xr_kn_per_sr,
                                kind_scat, opts.max_steps, active_int,
                                lam_fn=xr_kn_lam_fn, march_uses_lam_fn=True,
-                               tracer=tracer, dist=pkt.dist)
+                               dist=pkt.dist)
                 accs = _stitch(accs, dist_ids, sub)
                 iso_sr = 1.0 / (4.0 * jnp.pi)
 
@@ -1209,8 +874,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                                pkt.lam, pkt.pos, pkt.cell, xr_fl_per_sr,
                                kind_scat, opts.max_steps, active_int,
                                lam_fn=lambda ko: lam_line,
-                               march_uses_lam_fn=True,
-                               tracer=tracer, dist=pkt.dist)
+                               march_uses_lam_fn=True, dist=pkt.dist)
                 accs = _stitch(accs, dist_ids, sub)
             # channel selection + the scattering event proper
             u_ch = rng.uniform(keys, _TAG_SCATTER_COMP + 51)
@@ -1261,8 +925,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                                    pkt.lam, pkt.pos, pkt.cell, per_sr,
                                    kind_scat, opts.max_steps, active_int,
                                    lam_fn=lam_fn, lam_march=lam_march1,
-                                   tracer=tracer, dist=pkt.dist,
-                                   level=pkt.nscat + 1)
+                                   dist=pkt.dist, level=pkt.nscat + 1)
                     accs = _stitch(accs, dist_ids, sub)
                 if local_ids:
                     sub = peel_off_local(grid, med, opt_int,
@@ -1271,8 +934,7 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                                          [accs[i] for i in local_ids],
                                          pkt.lam, pkt.pos, pkt.cell, per_sr,
                                          kind_scat, opts.max_steps,
-                                         active_int, lam_march=lam_march1,
-                                         tracer=tracer)
+                                         active_int, lam_march=lam_march1)
                     accs = _stitch(accs, local_ids, sub)
             else:
                 # polarized peel-off: rotate into the (k, k_obs) scattering
@@ -1314,11 +976,8 @@ def life_cycle(grid, med: msys.MediumTables, opts: TransportOptions,
                     kobs = inst_tabs[gidx[0]]["kobs"]
                     B = pkt.lam.shape[0]
                     kdir = jnp.broadcast_to(kobs, (B, 3))
-                    kh = (inst_cfgs[gidx[0]].frame_axes()[0]
-                          if hasattr(inst_cfgs[gidx[0]], "frame_axes")
-                          else None)
-                    tau_obs = tracer(opt_ev, pkt.pos, kdir, pkt.cell,
-                                     active_int, kobs_host=kh)
+                    tau_obs = trace_tau(grid, med, opt_ev, pkt.pos, kdir,
+                                        pkt.cell, opts.max_steps, active_int)
                     att = jnp.exp(-tau_obs)
                     for i in gidx:
                         contrib, quv = stokes_per_sr(inst_tabs[i]["kobs"],

@@ -1,6 +1,6 @@
 """Resource-pack discovery: locate named .stab resources on disk.
 
-TPU-build counterpart of the reference's FilePaths resource machinery
+Counterpart of the reference's FilePaths resource machinery
 (ref: SKIRT/core/FilePaths.cpp:143 findResources — recursive scan of the
 resource directories; :267 resourceName — suffix + segment matching;
 FilePaths.hpp:69). Resource packs are the reference's downloadable data

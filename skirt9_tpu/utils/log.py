@@ -4,7 +4,7 @@ Counterpart of the reference's logging stack (ref: SKIRT/fitsio-free logging
 classes — Log.hpp:89-103 five-second progress heartbeat and level filtering,
 FileLog.hpp file sink next to the outputs, TimeLogger.hpp:22 scoped phase
 timers with start/finish lines, ProcessManager rank prefixes). Host-side
-Python: the TPU engine stays pure; the host loop logs between jitted steps.
+Python: the device engine stays pure; the host loop logs between jitted steps.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Unit system: quantity -> unit -> SI conversion.
 
-TPU-native re-design of the reference's unit layer
+Batched re-design of the reference's unit layer
 (ref: SKIRT/core/SkirtUnitDef.cpp:27-346, SMILE/schema/UnitDef.hpp): internal
 representation is always SI; user-facing values parse/format through the
 tables below. Three output unit systems exist (SI, stellar, extragalactic),

@@ -236,37 +236,31 @@ def test_ski_adaptive_mesh_medium(tmp_path):
     assert np.all(np.asarray(sed["total"]) > 0)
 
 
-def test_amr_multilevel_sweep(tmp_path, monkeypatch):
-    """AMR grids ride the multi-level sweep when their cells are
-    power-of-two fractions of the box (Morton '!' trees with pow2 base
-    grids; ref: AdaptiveMeshSpatialGrid traversal)."""
-    monkeypatch.setenv("SKIRT9_TPU_FORCE_SWEEP", "1")
+def test_amr_scan_march_tau_matches_box_exit(tmp_path):
+    """The scan march through an AMR grid of unit density accumulates
+    exactly sigma * (distance to the box boundary), across the refined
+    and unrefined leaves alike (ref: AdaptiveMeshSpatialGrid path
+    machinery)."""
     from skirt9_tpu.media import system as msys
     from skirt9_tpu.transport import lifecycle as lc
-    from skirt9_tpu.transport import mlsweep as ml
 
-    path = write_amr(tmp_path, TWO_LEVEL)
-    g, vals = build_amr(path, ((-1, 1), (-1, 1), (-1, 1)))
-    nd = np.asarray(vals, np.float64)
-    med = msys.make_medium(g, nd.astype(np.float32),
+    rs = np.random.default_rng(1)
+    path = write_amr(tmp_path, deep_mesh_text(rs))
+    g, _ = build_amr(path, ((-1, 1), (-1, 1), (-1, 1)))
+    med = msys.make_medium(g, np.ones(g.ncells, np.float32),
                            np.array([0.4e-6, 0.7e-6]),
                            sigma_ext=np.full((1, 2), 1.0),
                            albedo=np.full((1, 2), 0.5),
                            g=np.zeros((1, 2)))
-    assert ml.supports(g, med)
-    tabs = ml.build_tables(g, med)
-    rs = np.random.default_rng(1)
     B = 256
-    pos = jnp.asarray(rs.uniform(-0.9, 0.9, (B, 3)), jnp.float32)
+    pos = rs.uniform(-0.9, 0.9, (B, 3))
     d = rs.normal(size=(B, 3))
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True),
-                    jnp.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_exit = np.min(np.where(d > 0, (1.0 - pos) / d, (-1.0 - pos) / d),
+                    axis=-1)
+    pos_j = jnp.asarray(pos, jnp.float32)
     opt = msys.optics_at(med, jnp.full((B,), 0.55e-6))
-    cell = g.locate(pos)
-    active = cell >= 0
-    tau_ref = lc.trace_tau(g, med, opt, pos, d, cell, g.max_steps(), active)
-    tau_ml = jnp.sum(ml.sweep_dtau(tabs, pos, d, opt.sigma_ext.T, active),
-                     axis=0)
-    np.testing.assert_allclose(np.asarray(tau_ml)[np.asarray(active)],
-                               np.asarray(tau_ref)[np.asarray(active)],
-                               rtol=3e-4, atol=1e-5)
+    cell = g.locate(pos_j)
+    tau = lc.trace_tau(g, med, opt, pos_j, jnp.asarray(d, jnp.float32),
+                       cell, g.max_steps(), cell >= 0)
+    np.testing.assert_allclose(np.asarray(tau), t_exit, rtol=1e-4)

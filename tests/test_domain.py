@@ -65,8 +65,7 @@ def _run_replicated(grid, med, source, inst, rfb, opts, N, seed=0):
     return np.asarray(rf, np.float64), jax.device_get(accs)
 
 
-def _run_decomposed(grid, med, source, inst, rfb, opts, N, n_dev=8, seed=0,
-                    xl=False):
+def _run_decomposed(grid, med, source, inst, rfb, opts, N, n_dev=8, seed=0):
     devices = jax.devices()[:n_dev]
     mesh = dom.make_dd_mesh(devices)
     dec = dom.decompose_slabs(grid, n_dev)
@@ -75,9 +74,7 @@ def _run_decomposed(grid, med, source, inst, rfb, opts, N, n_dev=8, seed=0,
     nd_sh, rf_sh = dom.shard_tables(mesh, dec, med, rfb.shape[0] - 1)
     accs = [dinst.init_accumulators(inst)]
     run = dom.dd_segment(mesh, dec, grid, med, opts, (inst,), tabs, rfb,
-                         source, stabs, N,
-                         xl_local=dom.build_local_xl(dec, med) if xl
-                         else None)
+                         source, stabs, N)
     history = jnp.arange(N, dtype=jnp.int32)
     rf_sh, accs = run(jax.random.PRNGKey(seed), history, stabs,
                       nd_sh, rf_sh, accs)
@@ -104,36 +101,6 @@ def test_single_event_matches_replicated(ncomp):
     fa = np.asarray(accs_a[0]["frame"], np.float64)
     fb = np.asarray(accs_b[0]["frame"], np.float64)
     assert np.abs(fb - fa).max() < 1e-3 * max(fa.max(), 1e-30)
-
-
-def test_dd_xl_sweep_matches_march(monkeypatch):
-    """Round-5 composition: each device runs the streamed XL sweep on its
-    own slab subgrid (parallel/domain.build_local_xl + dd_segment
-    xl_local) instead of the fixed-bound scan march. Same RNG streams and
-    exchange protocol -> the full multi-event run must match the
-    march-based DD engine to the hi/lo-bf16 tau round-off."""
-    monkeypatch.setenv("SKIRT9_TPU_FORCE_SWEEP", "1")
-    grid, med, source, inst, rfb = _problem(ncomp=1, nrf=1)
-    opts = lc.TransportOptions(max_steps=grid.max_steps(), max_events=4,
-                               rf_scale=1.0)
-    N = 1024
-    rf_m, accs_m = _run_decomposed(grid, med, source, inst, rfb, opts, N)
-    rf_x, accs_x = _run_decomposed(grid, med, source, inst, rfb, opts, N,
-                                   xl=True)
-    scale = rf_m.max()
-    assert np.abs(rf_x - rf_m).max() < 1e-3 * scale
-    sm = np.asarray(accs_m[0]["sed"], np.float64)
-    sx = np.asarray(accs_x[0]["sed"], np.float64)
-    assert np.abs(sx - sm).max() < 1e-3 * max(sm.max(), 1e-30)
-    # multi-component media ride the same per-lane sigma contract
-    grid2, med2, source2, inst2, rfb2 = _problem(ncomp=2, nrf=1)
-    rf_m2, accs_m2 = _run_decomposed(grid2, med2, source2, inst2, rfb2,
-                                     opts, N)
-    rf_x2, accs_x2 = _run_decomposed(grid2, med2, source2, inst2, rfb2,
-                                     opts, N, xl=True)
-    sm2 = np.asarray(accs_m2[0]["sed"], np.float64)
-    sx2 = np.asarray(accs_x2[0]["sed"], np.float64)
-    assert np.abs(sx2 - sm2).max() < 1e-3 * max(sm2.max(), 1e-30)
 
 
 def test_multi_event_statistical():
@@ -256,7 +223,6 @@ def test_dd_production_bench2_end_to_end():
         if dd:
             sim.mesh = Mesh(np.array(jax.devices()[:8]), (sim.mesh_axis,))
             sim.dd = True
-            sim._build_sweep_tables()
         return sim
 
     sim_dd = build(True)
@@ -292,7 +258,6 @@ def test_dd_tree_grid_voxelized():
         if dd:
             sim.mesh = Mesh(np.array(jax.devices()[:8]), (sim.mesh_axis,))
             sim.dd = True
-            sim._build_sweep_tables()
         return sim
 
     sim_dd = build(True)
@@ -328,7 +293,6 @@ def test_dd_refuses_unsupported_physics():
     sim.seed = 0
     sim.mesh = Mesh(np.array(jax.devices()[:8]), (sim.mesh_axis,))
     sim.dd = True
-    sim._build_sweep_tables()
     with pytest.raises(NotImplementedError) as ei:
         sim.run_primary(verbose=False)
     msg = str(ei.value)

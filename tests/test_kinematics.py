@@ -71,63 +71,3 @@ def test_zero_velocity_matches_static():
     att_k = run(kinematics=True, v_kms=0.0)
     att_s = run(kinematics=False, v_kms=0.0)
     assert att_k == pytest.approx(att_s, rel=1e-3)
-
-
-def test_kinematics_const_sigma_rides_the_sweep():
-    """With wavelength-independent cross sections (Thomson electrons) the
-    sweep engine is exact under kinematics (perceived-wavelength opacity ==
-    launch opacity), so the gate admits it and results match the scan
-    march (the polarized+kinematic benchmark's fast path)."""
-    import os
-    import jax.numpy as jnp
-
-    n = 16
-    box = PC
-    grid = make_cartesian(((-box, box),) * 3, (n,) * 3)
-    sigma = 6.652458e-29
-    nd_val = 1.5 / (sigma * box)
-    nd = np.full(grid.ncells, nd_val, np.float32)
-    # radial outflow
-    centers = np.asarray(grid.cell_centers(), np.float64)
-    r = np.linalg.norm(centers, axis=-1)
-    v = 2e6 * centers / np.maximum(r, box / 100)[:, None]
-    lam_t = np.geomspace(0.4e-6, 0.8e-6, 8)
-    med = msys.make_medium(grid, nd, lam_t,
-                           np.full((1, 8), sigma),
-                           albedo=np.full((1, 8), 1.0),
-                           g=np.zeros((1, 8)),
-                           bulk_v=v.astype(np.float32))
-    wb = tuple(np.linspace(0.4e-6, 0.8e-6, 17))
-    inst = dinst.DistantInstrumentCfg(name="i", wave_borders=wb,
-                                      inclination=90.0,
-                                      distance=100 * PC)
-
-    def build(force):
-        if force:
-            os.environ["SKIRT9_TPU_FORCE_SWEEP"] = "1"
-        try:
-            opts = lc.TransportOptions(max_steps=grid.max_steps(),
-                                       max_events=8, kinematics=True,
-                                       path_length_bias=0.0, store_rf=False)
-            sim = Simulation(grid=grid, medium=med,
-                             sources=[PointSource(luminosity=1.0,
-                                                  lam0=LAM0)],
-                             instruments=[inst], options=opts,
-                             rf_borders=None, num_packets=4096,
-                             batch_size=4096, seed=2)
-        finally:
-            os.environ.pop("SKIRT9_TPU_FORCE_SWEEP", None)
-        return sim
-
-    sim_sweep = build(True)
-    assert sim_sweep._sweep_tabs is not None
-    _, accs_s = sim_sweep.run_primary(verbose=False)
-    sim_march = build(False)
-    assert sim_march._sweep_tabs is None
-    _, accs_m = sim_march.run_primary(verbose=False)
-    sed_s = np.asarray(accs_s[0]["sed"])
-    sed_m = np.asarray(accs_m[0]["sed"])
-    # identical RNG streams; engines differ only in traversal arithmetic
-    assert np.allclose(sed_s.sum(), sed_m.sum(), rtol=2e-3)
-    m = sed_m > 0.05 * sed_m.max()
-    assert np.allclose(sed_s[m], sed_m[m], rtol=0.05)

@@ -1,7 +1,7 @@
 """f32 numerics of the transport core (SURVEY §7 hard part 6).
 
 The reference accumulates optical depth in f64 (SpatialGridPath.hpp:155);
-TPU f64 is emulated and slow, so the engine runs f32 throughout. These
+the engine runs f32 throughout (f64 is slow or emulated on accelerators). These
 tests bound the actual error sources:
 
   * long-path tau accumulation (256-step marches): f32 sequential summation

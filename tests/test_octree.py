@@ -116,15 +116,12 @@ def test_octree_transport_matches_cartesian():
 
 
 def test_bintree_build_and_march():
-    """BinTree grid: alternate-axis splits, locate/step consistent, and
-    the multi-level sweep accepts its anisotropic leaves
+    """BinTree grid: alternate-axis splits, locate consistent with the
+    leaf boxes, and the scan march exact across anisotropic leaves
     (ref: BinTreeNode.hpp; PolicyTreeSpatialGrid treeType=BinTree)."""
-    import os
-
     from skirt9_tpu.grids.bintree import build_bintree
     from skirt9_tpu.media import system as msys
     from skirt9_tpu.transport import lifecycle as lc
-    from skirt9_tpu.transport import mlsweep as ml
 
     R = 1.0
 
@@ -149,34 +146,26 @@ def test_bintree_build_and_march():
     assert ok.all()
     assert (pts[ok] >= lo[ok] - 1e-5).all() and (pts[ok] <= hi[ok] + 1e-5).all()
 
-    # multi-level sweep dtau matches the scan march (interpret mode)
-    os.environ["SKIRT9_TPU_FORCE_SWEEP"] = "1"
-    try:
-        nd = dens(np.asarray(grid.cell_centers(), np.float64))
-        med = msys.make_medium(grid, nd.astype(np.float32),
-                               np.array([0.4e-6, 0.7e-6]),
-                               sigma_ext=np.full((1, 2), 1.0),
-                               albedo=np.full((1, 2), 0.5),
-                               g=np.zeros((1, 2)))
-        assert ml.supports(grid, med)
-        tabs = ml.build_tables(grid, med)
-        B = 256
-        pos = jnp.asarray(rs.uniform(-0.8, 0.8, (B, 3)), jnp.float32)
-        dirn = rs.normal(size=(B, 3))
-        dirn = jnp.asarray(dirn / np.linalg.norm(dirn, axis=-1,
-                                                 keepdims=True), jnp.float32)
-        opt = msys.optics_at(med, jnp.full((B,), 0.55e-6))
-        cell = grid.locate(pos)
-        active = cell >= 0
-        tau_ref = lc.trace_tau(grid, med, opt, pos, dirn, cell,
-                               grid.max_steps(), active)
-        tau_ml = jnp.sum(ml.sweep_dtau(tabs, pos, dirn, opt.sigma_ext.T,
-                                       active), axis=0)
-        np.testing.assert_allclose(np.asarray(tau_ml)[np.asarray(active)],
-                                   np.asarray(tau_ref)[np.asarray(active)],
-                                   rtol=3e-4, atol=1e-5)
-    finally:
-        del os.environ["SKIRT9_TPU_FORCE_SWEEP"]
+    # the scan march through unit density accumulates exactly the path
+    # length to the box boundary across the anisotropic leaves
+    med = msys.make_medium(grid, np.ones(grid.ncells, np.float32),
+                           np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), 1.0),
+                           albedo=np.full((1, 2), 0.5),
+                           g=np.zeros((1, 2)))
+    B = 256
+    pos = rs.uniform(-0.8, 0.8, (B, 3))
+    dirn = rs.normal(size=(B, 3))
+    dirn /= np.linalg.norm(dirn, axis=-1, keepdims=True)
+    t_exit = np.min(np.where(dirn > 0, (1.2 - pos) / dirn,
+                             (-1.2 - pos) / dirn), axis=-1)
+    pos_j = jnp.asarray(pos, jnp.float32)
+    opt = msys.optics_at(med, jnp.full((B,), 0.55e-6))
+    cell = grid.locate(pos_j)
+    tau = lc.trace_tau(grid, med, opt, pos_j,
+                       jnp.asarray(dirn, jnp.float32), cell,
+                       grid.max_steps(), cell >= 0)
+    np.testing.assert_allclose(np.asarray(tau), t_exit, rtol=1e-4)
 
 
 def test_site_list_policy():

@@ -1,6 +1,6 @@
 """Multi-device packet data-parallelism on the virtual 8-CPU mesh.
 
-Validates the psum-reduced sharded segment (the TPU equivalent of the
+Validates the psum-reduced sharded segment (the device-mesh equivalent of the
 reference's threads+MPI scaling, SURVEY.md §2.2) and that sharded results
 equal the single-device run exactly — counter-based RNG makes the physics
 independent of the device decomposition, a property the reference's

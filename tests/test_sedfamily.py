@@ -114,40 +114,3 @@ def test_blackbody_family_mixture_matches_planck():
     np.testing.assert_allclose(got, want, rtol=0.1)
     i = np.argmax(got)
     assert lam[i] == pytest.approx(2.898e-3 / 5000, rel=0.1)  # Wien
-
-
-def test_stratified_family_sampling_expectation_exact(tmp_path):
-    """Stratified family sampling (bin-pure lane groups for the sweep)
-    reproduces the unstratified wavelength distribution in expectation:
-    per-stratum weighted mass matches the node-mixture cdf mass, and the
-    weighted mean wavelength agrees with plain sampling."""
-    import jax
-
-    p = tmp_path / "ssp.stab"
-    lam, Z, t, L = make_ssp_stab(p)
-    fam = sf.load_ssp_family(str(p))
-    tabs = sf.FamilyTables(fam, lam_range=(2e-7, 5e-6))
-    params = np.array([[0.015, 3e8], [0.03, 2e7]])
-    cidx, ccdf, cw, ratio = tabs.corner_tables(params)
-    B = 1 << 14
-    keys = rng.event_keys(rng.history_keys(jax.random.PRNGKey(3),
-                                           jnp.arange(B)), rng.LAUNCH_EVENT)
-    entity = jnp.asarray(np.arange(B) % 2, jnp.int32)
-    borders = jnp.asarray(np.geomspace(2e-7, 5e-6, 9), jnp.float32)
-    lam_s, w_s = tabs.sample_wavelength_stratified(keys, entity, cidx,
-                                                   ccdf, borders)
-    lam_s = np.asarray(lam_s)
-    w_s = np.asarray(w_s)
-    R = 8
-    stratum = (np.arange(B) * R) // B
-    # every lane inside its stratum
-    blo = np.asarray(borders)[stratum]
-    bhi = np.asarray(borders)[stratum + 1]
-    assert (lam_s >= blo - 1e-12).all() and (lam_s <= bhi).all()
-    # weights are R*Q: average weight == 1 (total mass preserved)
-    assert np.mean(w_s) == pytest.approx(1.0, abs=0.02)
-    # weighted spectrum matches the plain sampler's
-    lam_p = np.asarray(tabs.sample_wavelength(keys, entity, cidx, ccdf))
-    m_s = np.average(lam_s, weights=w_s)
-    m_p = np.mean(lam_p)
-    assert m_s == pytest.approx(m_p, rel=0.05)

@@ -134,3 +134,31 @@ def test_transport_on_voronoi_matches_cartesian():
     voro = run(vor, vor.max_steps())
     # different discretizations of the same sphere: agree to several %
     assert voro["total"][0] == pytest.approx(cart["total"][0], rel=0.08)
+
+
+def test_scan_march_tau_matches_box_exit():
+    """The scan march through a Voronoi grid of unit density accumulates
+    exactly sigma * (distance to the box boundary): the exact cell walk
+    loses no path length at the cell walls."""
+    from skirt9_tpu.media import system as msys
+    from skirt9_tpu.transport import lifecycle as lc
+
+    g = make_grid()
+    med = msys.make_medium(g, np.ones(g.ncells, np.float32),
+                           np.array([0.4e-6, 0.7e-6]),
+                           sigma_ext=np.full((1, 2), 1.0),
+                           albedo=np.full((1, 2), 0.5),
+                           g=np.zeros((1, 2)))
+    rs = np.random.default_rng(2)
+    B = 128
+    pos = rs.uniform(-0.9, 0.9, (B, 3))
+    d = rs.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_exit = np.min(np.where(d > 0, (1.0 - pos) / d, (-1.0 - pos) / d),
+                    axis=-1)
+    pos_j = jnp.asarray(pos, jnp.float32)
+    opt = msys.optics_at(med, jnp.full((B,), 0.55e-6))
+    cell = g.locate(pos_j)
+    tau = lc.trace_tau(g, med, opt, pos_j, jnp.asarray(d, jnp.float32),
+                       cell, g.max_steps(), cell >= 0)
+    np.testing.assert_allclose(np.asarray(tau), t_exit, rtol=1e-4)

@@ -4,7 +4,7 @@ process boundary (2 CPU processes x 4 virtual devices, gloo collectives).
 This executes the MULTIHOST.md design instead of describing it — the
 counterpart of the reference's MPI stack (ref: ProcessManager.cpp:45
 MPI_Init_thread; :206 per-segment MPI_Allreduce == our one reduction per
-segment riding the DCN-analog axis between the two processes).
+segment riding the outer mesh axis between the two processes).
 
 Usage:
     python tools/multiproc_run.py            # parent: spawns 2 workers +
@@ -39,7 +39,6 @@ def _build_sim(mesh=None, mesh_axis="pp", dd=False):
         sim.mesh = mesh
         sim.mesh_axis = mesh_axis
         sim.dd = dd
-        sim._build_sweep_tables()
     return sim
 
 
@@ -84,11 +83,11 @@ def worker(proc_id: int, nprocs: int, port: int):
     out["psum_over_procs"] = s
 
     # --- production bench2, packet DP over the 2-level mesh ---------------
-    # (MULTIHOST.md: histories shard over BOTH axes — the inner axis is the
-    # ICI analog within a process, the outer the DCN analog between them)
+    # (MULTIHOST.md: histories shard over BOTH axes — the inner axis spans
+    # the devices of a process, the outer the processes)
     devs = np.array(jax.devices()).reshape(nprocs, 4)
-    hybrid = Mesh(devs, ("pp_dcn", "pp_ici"))
-    sim = _build_sim(mesh=hybrid, mesh_axis=("pp_dcn", "pp_ici"))
+    hybrid = Mesh(devs, ("pp_host", "pp_dev"))
+    sim = _build_sim(mesh=hybrid, mesh_axis=("pp_host", "pp_dev"))
     out["dp"] = _result(sim)
 
     # --- production bench2, spatial domain decomposition ------------------
@@ -160,7 +159,7 @@ def main():
     record = {
         "procs": multi["procs"],
         "devices": multi["devices"],
-        "collective_backend": "gloo (CPU); ICI/DCN on TPU pods",
+        "collective_backend": "gloo (CPU); NCCL on GPU hosts",
         "psum_over_procs": multi["psum_over_procs"],
         "dp": multi["dp"], "dd": multi["dd"], "replicated": rep,
         "rel_diff_dp_sed": rel(multi["dp"]["sed_sum"], rep["sed_sum"]),
